@@ -1,5 +1,6 @@
-"""The torch port on a CUDA card: the hand-written kernel against its plain
-version, and the facade's main path through it.
+"""The torch port on a CUDA card: the hand-written kernels (IVF probe
+re-rank, LSH candidate re-rank) against their plain versions, and the
+facade's main paths through them.
 
 Imports neither JAX nor the JAX package, so it runs where only torch is
 installed. Every test needs a card and skips without one; on the card:
@@ -112,5 +113,102 @@ def test_facade_goes_through_the_kernel(cuda, tmp_path):
     db.remove(ids[:10])
     db.save()
     again = T.Database.open(str(tmp_path / "g.zebra"))
+    assert len(again) == 4086
+    assert [row[0][0] for row in again.query(x[10:100], 1)] == ids[10:100]
+
+
+# -- kernel 4: the LSH candidate re-rank (csrc/lsh_rerank.cu) -------------------
+
+
+def _lsh_inputs(device, S, W, D, B, M, dtype, seed=0):
+    """A slab of clustered rows (zero columns past D), candidates with -1
+    pads, masked duplicates, one zero-norm row and one all-invalid query."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    vec = torch.zeros((S, W), device=device)
+    centers = torch.randn((64, D), generator=g, device=device)
+    pick = torch.randint(0, 64, (S,), generator=g, device=device)
+    vec[:, :D] = centers[pick] + 0.2 * torch.randn((S, D), generator=g, device=device)
+    vec[7] = 0.0
+    vec = vec.to(dtype)
+    norms_all = (vec.float() ** 2).sum(-1)
+    cand = torch.randint(0, S, (B, M), generator=g, device=device, dtype=torch.int32)
+    cand[:, ::11] = -1
+    cand[1, :5] = 7  # the zero-norm row, repeated
+    srt = torch.sort(cand, dim=1).values
+    dup = torch.zeros_like(srt, dtype=torch.bool)
+    dup[:, 1:] = srt[:, 1:] == srt[:, :-1]
+    valid = ((srt >= 0) & ~dup).float()
+    valid[0] = 0.0  # nothing valid at all
+    norms = norms_all[torch.clamp(srt, 0, S - 1).long()]
+    q = (centers[pick[:B]] + 0.1 * torch.randn((B, D), generator=g, device=device)).float()
+    return vec, q.contiguous(), srt.contiguous(), norms, valid
+
+
+@pytest.mark.parametrize("metric", ["cosine", "l2", "sql2"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("W,D", [(768, 768), (1024, 768), (100, 100)])  # vector, stride, element path
+def test_lsh_kernel_matches_plain_version(cuda, metric, dtype, W, D):
+    from zebra_tpu_torch.ops import lsh_rerank as LR
+
+    for M in (3000, 5000):  # two and three candidate tiles, the last ragged
+        vec, q, cand, norms, valid = _lsh_inputs(cuda, 20000, W, D, 48, M, dtype)
+        for k in (10, 128):
+            before = LR.LAUNCHES
+            gd, gp = LR.lsh_rerank(vec, q, cand, norms, valid, metric, k)
+            assert LR.LAUNCHES == before + 1
+            wd, wp = LR.lsh_rerank_reference(vec, q, cand, norms, valid, metric, k)
+            gv, wv = gp >= 0, wp >= 0
+            assert torch.equal(gv, wv) and not bool(gv[0].any())
+            assert bool(torch.isinf(gd[~gv]).all())
+            assert float((gp == wp).float().mean()) >= 0.99
+            _check((gd, gp, gv), (wd, wp, wv), q, metric)
+
+
+def test_lsh_kernel_refuses_what_it_does_not_take(cuda):
+    from zebra_tpu_torch.ops import lsh_rerank as LR
+
+    vec, q, cand, norms, valid = _lsh_inputs(cuda, 1000, 64, 64, 4, 300, torch.float32)
+    with pytest.raises(ValueError, match="k <= 128"):
+        LR.lsh_rerank(vec, q, cand, norms, valid, k=129)
+    with pytest.raises(ValueError, match="int32"):
+        LR.lsh_rerank(vec, q, cand.long(), norms, valid)
+    with pytest.raises(ValueError, match="contiguous"):
+        LR.lsh_rerank(vec, q, cand.T.contiguous().T, norms, valid)
+    with pytest.raises(ValueError, match="f32 or bf16"):
+        LR.lsh_rerank(vec.half(), q, cand, norms, valid)
+
+
+def test_lsh_query_cuda_matches_eager_on_the_card(cuda):
+    from zebra_tpu_torch.index import buckets as TB
+    from zebra_tpu_torch.index.lsh import LSHIndex
+
+    x = _blobs(3, 6000, 128)
+    ix = LSHIndex(dim=128, options=T.IndexOptions(index_type="lsh"), device=cuda)
+    ix.add(x)
+    q = torch.from_numpy(x[::60] + 0.05).to(cuda)
+    for k in (10, 128):
+        a = TB.query(ix.state, q, k, num_probes=10, rerank="cuda")
+        b = TB.query(ix.state, q, k, num_probes=10, rerank="eager")
+        _check(a, b, q, "cosine")
+    large = TB.EAGER_LARGE_K
+    TB.query(ix.state, q, 129, num_probes=10, rerank="cuda")  # wider k: eager, counted
+    assert TB.EAGER_LARGE_K == large + 1
+
+
+def test_lsh_facade_goes_through_the_kernel(cuda, tmp_path):
+    from zebra_tpu_torch.ops import lsh_rerank as LR
+
+    x = _blobs(8, 4096, 128)
+    path = str(tmp_path / "l.zebra")
+    db = T.Database.create(path, T.DatabaseConfig(dim=128, index=T.IndexOptions(index_type="lsh")))
+    assert db.index.options.rerank == "cuda"
+    ids = db.insert_vectors(x)
+    before = LR.LAUNCHES
+    top1 = db.query(x[:100], 1)
+    assert LR.LAUNCHES > before
+    assert [row[0][0] for row in top1] == ids[:100]
+    db.remove(ids[:10])
+    db.save()
+    again = T.Database.open(path)
     assert len(again) == 4086
     assert [row[0][0] for row in again.query(x[10:100], 1)] == ids[10:100]

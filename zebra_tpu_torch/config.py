@@ -262,16 +262,18 @@ class IndexOptions:
     def resolved_rerank(self, dim: int, index_type: str | None = None,
                         device: str = "cpu") -> str:
         """Concrete re-rank backend for a ``dim``-wide index whose state
-        lives on ``device``: "cuda" (the hand-written probe kernel,
-        ``csrc/ivf_rerank.cu``) for IVF on a CUDA device, "eager" (plain
-        torch block re-rank) everywhere else. Every stored value resolves
+        lives on ``device``: "cuda" (the hand-written kernel of the index
+        type: ``csrc/ivf_rerank.cu`` for IVF, ``csrc/lsh_rerank.cu`` for
+        LSH) on a CUDA device, "eager" (the plain torch re-rank, the JAX
+        package's "xla" path) everywhere else. Every stored value resolves
         by device: "auto", and the JAX package's "pallas" / "pallas2" /
         "xla" read from an existing manifest, all name a re-rank of the same
         semantics, and the port has one kernel for it. Manifests keep
         persisting what the user wrote, so each opening process
-        re-resolves for its own device."""
-        del dim  # the kernel takes any stored width
-        if (index_type or self.index_type) == "ivf" and str(device).startswith("cuda"):
+        re-resolves for its own device (an explicit LSH "pallas" still pads
+        the stored width, see ``index/lsh.py``)."""
+        del dim  # the kernels take any stored width
+        if (index_type or self.index_type) in ("ivf", "lsh") and str(device).startswith("cuda"):
             return "cuda"
         return "eager"
 

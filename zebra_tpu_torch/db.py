@@ -4,8 +4,8 @@ only so far).
 The same manifest (``<path>``), index snapshot (``<path>.d/index/``) and
 write-ahead log (``<path>.d/delta.log``) as the JAX package, so a database
 written by one package opens in the other. With ``durability="full"`` (the
-default) every insert span is logged as an fsync'd q8 record BEFORE the index
-mutation runs, and every remove is logged before it tombstones; ``open``
+default) every insert span is logged as an fsync'd record (q8 for IVF, f32 or
+bf16 for LSH) BEFORE the index mutation runs, and every remove is logged before it tombstones; ``open``
 replays the log onto the last snapshot (idempotent by id).
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP.md
@@ -165,15 +165,23 @@ class Database:
 
     # -- CRUD ----------------------------------------------------------------------
 
-    def _wal_callback(self, ids: list[bytes]):
-        """Per-span write-ahead hook for ``index.add``: the span's q8 record
-        is appended and fsync'd before the span's insert runs."""
+    def _wal_callback(self, ids: list[bytes], vectors: np.ndarray):
+        """Per-span write-ahead hook for ``index.add``: the span's record is
+        appended and fsync'd before the span's insert runs. A quantised wire
+        (IVF) hands over its q8 parts; an array wire (LSH) logs the span's
+        rows as exact f32, or bf16 for a bf16 slab (lossless for what it
+        stores)."""
         if self.config.durability != "full":
             return None
+        bf16 = getattr(self.index, "_wal_codec", "f32") == "bf16"
 
         def cb(span, parts):
             start, count = span
-            self._delta.append_insert_q8(ids[start : start + count], *parts)
+            sids = ids[start : start + count]
+            if parts is not None:
+                self._delta.append_insert_q8(sids, *parts)
+            else:
+                self._delta.append_insert(sids, vectors[start : start + count], bf16=bf16)
 
         return cb
 
@@ -201,7 +209,7 @@ class Database:
         for s in range(0, n, w):
             bids = ids[s : s + w]
             with self._lock.write():
-                self.index.add(v[s : s + w], ids=bids, wal_cb=self._wal_callback(bids),
+                self.index.add(v[s : s + w], ids=bids, wal_cb=self._wal_callback(bids, v[s : s + w]),
                                span_rows=self._insert_span_rows(len(bids)))
                 self._write_manifest(self.path)
         return ids

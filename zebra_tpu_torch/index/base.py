@@ -1,10 +1,12 @@
 """Host orchestration shared by index backends (port of the subset of
 ``zebra_tpu/index/base.py`` the facade uses).
 
-Owns id <-> slot maps, insert batching, result formatting and the snapshot
-format (``index.json`` meta + ``arrays.npz``, the same files the JAX package
-writes). Inserts run span by span with no pipelining yet (ROADMAP.md queue 1,
-pipelined staging).
+Owns id <-> slot maps, insert batching, result formatting, inline
+rebuilds (a backend's ``_rebuild_reason`` checked after every add and remove)
+and the snapshot format (``index.json`` meta + ``arrays.npz``, the same files
+the JAX package writes). Inserts run span by span with no pipelining yet
+(ROADMAP.md queue 1, pipelined staging); rebuilds run inline, never on a
+background worker (queue 1, item 5).
 """
 
 from __future__ import annotations
@@ -21,6 +23,8 @@ from zebra_tpu_torch.utils import fsync_write, next_pow2, uuid7_batch
 
 #: insert span width (vectors per device insert)
 BATCH = 65536
+#: smallest padded span the JAX package stages (slab reservations follow it)
+_MIN_BATCH = 256
 
 _ZERO_ID = b"\x00" * 16
 
@@ -106,7 +110,11 @@ class BaseVectorIndex:
 
     Subclasses implement ``_fresh_state``, ``_stage_span``,
     ``_insert_batch_dev``, ``_resolve_failed``, ``_delete_slots_device``,
-    ``_query_device``, ``_snapshot_arrays`` and ``_restore_arrays``.
+    ``_query_device``, ``_snapshot_arrays`` and ``_restore_arrays``; the
+    rebuild policy hooks (``_rebuild_reason``, ``_pre_rebuild``,
+    ``_reset_alloc_mirrors``) and the snapshot meta hooks
+    (``_meta_extra``, ``_apply_meta_extra``, ``_after_restore``) are
+    optional.
     """
 
     _BACKEND: str | None = None
@@ -123,6 +131,8 @@ class BaseVectorIndex:
         self._given_rerank = options.rerank
         self.options = options.concrete(self.dim, index_type=self._BACKEND,
                                         device=self.device.type)
+        #: stored (device) width — a backend may pad it for kernel layout
+        self._dev_dim = self.dim
         self.state = None
         self._slot_ids = SlotIdArena()
         self._id_to_slot = IdSlotMap()
@@ -186,9 +196,12 @@ class BaseVectorIndex:
             if self.state is None:
                 self._built_n = n
                 if self._cold_build(vectors, ids):
+                    self._maybe_rebuild()
                     return ids
                 self.state = self._fresh_state(n, vectors)
+            self._before_batches(n)
             self._insert_batches(vectors, ids)
+            self._maybe_rebuild()
             return ids
         finally:
             self._prequant = None
@@ -200,13 +213,28 @@ class BaseVectorIndex:
         here; False to take the generic path."""
         return False
 
+    def _before_batches(self, n: int) -> None:
+        """Reserve capacity for an incoming run of ``n`` rows (optional)."""
+
+    def _pad_dim(self, arr: np.ndarray) -> np.ndarray:
+        """Host rows zero-padded to the stored width (f32)."""
+        if arr.shape[-1] == self._dev_dim:
+            return arr
+        out = np.zeros((*arr.shape[:-1], self._dev_dim), dtype=np.float32)
+        out[..., : arr.shape[-1]] = arr
+        return out
+
+    def _span_width(self) -> int:
+        return int(self._span_rows) if self._span_rows else BATCH
+
     def _spans(self, n: int) -> list[tuple[int, int]]:
-        w = int(self._span_rows) if self._span_rows else BATCH
+        w = self._span_width()
         return [(s, min(n - s, w)) for s in range(0, n, w)]
 
     def _insert_batches(self, vectors, ids: list[bytes], staged=None) -> None:
-        """Stage and insert span by span; ``staged`` optionally holds spans
-        already staged (cold build)."""
+        """Stage and insert span by span; ``vectors`` is a host array or a
+        device tensor already at the stored width (a rebuild's source).
+        ``staged`` optionally holds spans already staged (cold build)."""
         for i, span in enumerate(self._spans(vectors.shape[0])):
             start, count = span
             batch = staged[i] if staged is not None and i < len(staged) else None
@@ -238,6 +266,7 @@ class BaseVectorIndex:
                 removed.append(i)
         if slots:
             self._delete_slots_device(np.asarray(slots, np.int64))
+            self._maybe_rebuild()
         return removed
 
     def clear(self) -> None:
@@ -245,6 +274,64 @@ class BaseVectorIndex:
         self._slot_ids = SlotIdArena()
         self._id_to_slot = IdSlotMap()
         self._built_n = 0
+
+    # -- rebuild ----------------------------------------------------------------
+
+    def _maybe_rebuild(self) -> None:
+        """Growth / compaction policy after a mutation: rebuild inline when
+        the backend names a reason."""
+        reason = self._rebuild_reason()
+        if reason:
+            self.rebuild(reason)
+
+    def _rebuild_reason(self) -> str | None:
+        """Why a rebuild is warranted right now (None = it isn't)."""
+        return None
+
+    def _pre_rebuild(self, reason: str | None) -> None:
+        """Policy hook run before a rebuild captures the live rows."""
+
+    def _reset_alloc_mirrors(self) -> None:
+        """Zero host-side slot-allocation mirrors (subclass hook)."""
+
+    def rebuild(self, reason: str | None = None) -> None:
+        """Re-place every live vector into fresh structures sized to the
+        current population (compacts tombstones). The live rows are
+        gathered on the device and re-inserted from there: the slab never
+        goes through the host. Peak memory is the old state plus the live
+        rows, then the live rows plus the new state."""
+        self._wal_cb = None  # re-inserted rows are already logged
+        self._pre_rebuild(reason)
+        order, ids = self._live_order_ids()
+        data = self._gather_live(order) if len(order) else None
+        self.state = None  # free the old structures before the new ones
+        self._shadow_begin(len(ids), data)
+        self._slot_ids = SlotIdArena()
+        self._id_to_slot = IdSlotMap()
+        self._reset_alloc_mirrors()
+        if ids:
+            self._shadow_ingest(data, ids)
+
+    def _live_order_ids(self):
+        """(ascending live slots, their ids)."""
+        order = self._slot_ids.live_slots()
+        return order, self._slot_ids.take_list(order)
+
+    def _gather_live(self, order) -> torch.Tensor:
+        """Device gather of the stored rows of ``order`` (stored values)."""
+        return self.state.vectors[torch.as_tensor(np.asarray(order, np.int64),
+                                                  device=self.state.vectors.device)]
+
+    def _shadow_begin(self, n_total: int, sample) -> None:
+        """Allocate fresh state sized for ``n_total`` vectors, trained on the
+        device rows ``sample``."""
+        self._built_n = max(n_total, 1)
+        self.state = self._fresh_state(max(n_total, 1), sample)
+
+    def _shadow_ingest(self, data, ids: list[bytes]) -> None:
+        """Insert captured device rows into the fresh state."""
+        self._before_batches(len(ids))
+        self._insert_batches(data, ids)
 
     # -- search -----------------------------------------------------------------
 
@@ -298,6 +385,7 @@ class BaseVectorIndex:
             "has_state": self.state is not None,
             "backend": type(self).__name__,
             "snapshot_format": "npz",
+            **self._meta_extra(),
         }
         fsync_write(os.path.join(directory, "index.json"), json.dumps(meta).encode())
         if self.state is not None:
@@ -314,6 +402,7 @@ class BaseVectorIndex:
                   options=IndexOptions.from_json(meta["options"]),
                   metric_power=meta.get("metric_power", 3.0), device=device)
         idx._built_n = meta.get("built_n", 0)
+        idx._apply_meta_extra(meta)
         if not meta.get("has_state"):
             return idx
         with open_snapshot_arrays(directory, meta) as z:
@@ -328,4 +417,15 @@ class BaseVectorIndex:
         idx._slot_ids = SlotIdArena.from_array(ids_arr)
         live = idx._slot_ids.live_slots()
         idx._id_to_slot.put_many(idx._slot_ids.take_list(live), live)
+        idx._after_restore()
         return idx
+
+    def _meta_extra(self) -> dict:
+        """Extra snapshot metadata (subclass hook)."""
+        return {}
+
+    def _apply_meta_extra(self, meta: dict) -> None:
+        """Restore :meth:`_meta_extra` fields on load (subclass hook)."""
+
+    def _after_restore(self) -> None:
+        """Post-load host-mirror fixups (subclass hook)."""

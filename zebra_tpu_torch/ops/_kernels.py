@@ -3,7 +3,8 @@
 Each ``csrc/<name>.cu`` exposes a plain C entry point and is compiled by
 ``nvcc`` into ``zebra_tpu_torch/_build/<name>-<hash>.so`` at first use, then
 loaded with ``ctypes`` (no PyTorch headers, so a build takes seconds). The
-file name carries a hash of the source, so an edited kernel rebuilds. Nothing
+file name carries a hash of the source, so an edited kernel rebuilds; two
+sources build at once when loaded from two threads. Nothing
 here runs at import time: the CPU-only test machines import every module.
 """
 
@@ -23,6 +24,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lock = threading.Lock()
+_name_locks: dict[str, threading.Lock] = {}
 _libs: dict[str, ctypes.CDLL] = {}
 #: compiler output (``-Xptxas -v``: registers, shared memory, spills) per kernel
 BUILD_LOG: dict[str, str] = {}
@@ -39,6 +41,8 @@ def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, building it if needed.
     Raises if the source does not compile."""
     with _lock:
+        name_lock = _name_locks.setdefault(name, threading.Lock())
+    with name_lock:
         if name in _libs:
             return _libs[name]
         src = os.path.join(CSRC, f"{name}.cu")
