@@ -7,8 +7,8 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
 
 1. the card (``nvidia-smi`` name and power limit); CUDA must be available
    and TF32 off;
-2. build every kernel of the two paths from ``zebra_tpu_torch/csrc`` (one
-   ``nvcc`` per source, all started together);
+2. build the four kernels from ``zebra_tpu_torch/csrc`` (one ``nvcc`` per
+   source, all started together);
 3. IVF kernel parity at its main path's shapes (D=768, C=128, P=2, k=10 and
    k=128, B=1024; ragged counts, tombstones, an all-invalid probe) against
    the plain torch version, and both timed at B=16384;
@@ -28,8 +28,28 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    candidates of 1024 held-out queries (deep buckets are compacted
    losslessly, see ``index/lsh.py``), the kernel against its plain version
    at k=10 and k=128, both timed, the stages of one device query timed by
-   CUDA events, and the LSH search beside the exact scan.
+   CUDA events, and the LSH search beside the exact scan;
+7. one-slab wave kernel parity on the synthetic state of phase 3 (int8 with
+   scales, bf16 and f32 slabs, three metrics, k=10/40/128, P=4 and an odd
+   P=3, B=1024) against the plain torch version, and both timed at B=16384,
+   P=4, k=40 on the int8 slab;
+8. the gather-refine path: ``DatabaseConfig(dim=768, index=IndexOptions(
+   refine=4, rerank="pallas2"))`` through the same facade calls and checks as
+   phase 4 (the wave kernel's launch count over it; the probe kernel must
+   not run); then, on the path's own probes, the wave kernel against its
+   plain version, the stages of one device query timed by CUDA events, the
+   distinct probed blocks beside B*P, and the recall of phase 4's scan-mode
+   database beside this one's, both against this phase's exact scan;
+9. the augmented-slab surface at the same sizing (K=16384, C=128, D=768,
+   P=4; all-live random rows with a share of tombstones; bf16, then f32):
+   ``augment_slab`` -> ``ivf_rerank_aug`` driven as the JAX package's
+   ablation tool drives it (its launch count), then the kernel against its
+   plain version (three metrics, k=10/128, ``exact`` on and off, B=1024) and
+   both timed at B=1024 and B=16384.
 
+A kernel's ``bound_ms`` is the larger of its distinct bytes (every input
+byte once, every output byte once) over 3.35 TB/s and its operations over
+the card's peak rate for their type, both counted from the timed inputs.
 The second-to-last line is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
@@ -57,6 +77,11 @@ MIN_SLOT_AGREEMENT = 0.999
 #: 1 + |d|): a swap of near-equal distances by f32 summation order
 TIE_TOL = 1e-5
 MIN_RECALL = 0.95
+#: published peaks of one H100 SXM: device memory, f32 outside the tensor
+#: cores, bf16 on them
+HBM_BYTES_S = 3.35e12
+PEAK_F32 = 67e12
+PEAK_BF16 = 989e12
 #: LSH guards, not targets: a broken bucket scatter measured 0.48 on the TPU
 MIN_LSH_RECALL = 0.85
 MIN_LSH_SELF = 0.99
@@ -95,12 +120,13 @@ def synthetic_state(torch, V, device, K=16384, C=128, G=65536, D=DIM, seed=SEED)
     return st
 
 
-def synthetic_probes(torch, device, B, K, seed):
+def synthetic_probes(torch, device, B, K, seed, P=2):
     g = torch.Generator(device=device).manual_seed(seed)
     p0 = torch.randint(0, K, (B,), generator=g, device=device)
-    p1 = (p0 + torch.randint(1, K, (B,), generator=g, device=device)) % K
-    probes = torch.stack([p0, p1], 1)
-    probes[0] = torch.tensor([0, 1], device=device)  # nothing valid at all
+    cols = [p0] + [(p0 + torch.randint(1, K, (B,), generator=g, device=device)) % K
+                   for _ in range(P - 1)]
+    probes = torch.stack(cols, 1)
+    probes[0] = torch.tensor([0, 1] * P, device=device)[:P]  # nothing valid at all
     probes[1, 1] = 0  # one all-invalid probe
     probes[2, 0] = 2  # the zero-norm row's cluster
     return probes
@@ -120,30 +146,74 @@ def compare(torch, got, want):
     return agree, err
 
 
-def tie_gap(torch, vectors, q, cand, norms, got_pos, want_pos, metric):
+def metric64(torch, metric, dot, qn2, n2):
+    """The kernels' distance formula in f64."""
+    if metric == "cosine":
+        return 1.0 - dot / torch.sqrt(torch.clamp(qn2 * n2, min=1e-30))
+    d2 = torch.clamp(qn2 + n2 - 2.0 * dot, min=0.0)
+    return torch.sqrt(d2) if metric == "l2" else d2
+
+
+def tie_gap(torch, got, want, d64):
     """(ranks where kernel and plain pick different candidates, the largest
-    gap between the two picks' distances recomputed in f64, relative to
-    1 + |d|); raises if a gap exceeds TIE_TOL."""
-    b, r = torch.nonzero(got_pos != want_pos, as_tuple=True)
+    gap between the two picks' values recomputed in f64 by ``d64(b, pick)``,
+    relative to 1 + |d|); raises if a gap exceeds TIE_TOL."""
+    b, r = torch.nonzero(got != want, as_tuple=True)
     if b.numel() == 0:
         return 0, 0.0
-    qq = q[b].double()
-    qn2 = (qq * qq).sum(-1)
-
-    def d64(pos):
-        p = pos[b, r]
-        dot = (vectors[cand[b, p].long(), : q.shape[1]].double() * qq).sum(-1)
-        n2 = norms[b, p].double()
-        if metric == "cosine":
-            return 1.0 - dot / torch.sqrt(torch.clamp(qn2 * n2, min=1e-30))
-        d2 = torch.clamp(qn2 + n2 - 2.0 * dot, min=0.0)
-        return torch.sqrt(d2) if metric == "l2" else d2
-
-    dg, dw = d64(got_pos), d64(want_pos)
+    dg, dw = d64(b, got[b, r]), d64(b, want[b, r])
     gap = float(((dg - dw).abs() / (1.0 + dw.abs())).max())
     check(gap <= TIE_TOL, f"kernel and plain pick candidates {gap} apart (> {TIE_TOL}): "
           "not a tie")
     return b.numel(), gap
+
+
+def lsh_d64(torch, vectors, q, cand, norms, metric):
+    """f64 distance of query ``b``'s candidate at position ``pos``."""
+    def d64(b, pos):
+        qq = q[b].double()
+        dot = (vectors[cand[b, pos].long(), : q.shape[1]].double() * qq).sum(-1)
+        return metric64(torch, metric, dot, (qq * qq).sum(-1), norms[b, pos].double())
+    return d64
+
+
+def wave_d64(torch, st, q, metric):
+    """f64 distance of query ``b`` to slab slot ``slot`` as the wave re-rank
+    defines it (bf16-rounded query on a reduced slab, coarse slab only)."""
+    qq = q if st.vectors.dtype == torch.float32 else q.to(torch.bfloat16).float()
+
+    def d64(b, slot):
+        x = st.vectors[slot].double()
+        if st.scales is not None:
+            x = x * st.scales[slot].double()[:, None]
+        qb = qq[b].double()
+        return metric64(torch, metric, (x * qb).sum(-1), (qb * qb).sum(-1),
+                        st.norms[slot].double())
+    return d64
+
+
+def bound_ms(n_bytes: float, n_ops: float, peak: float):
+    """(least time in ms, "bytes" or "operations"): distinct bytes over the
+    memory rate against operations over ``peak``."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_S * 1e3, n_ops / peak * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def probe_bound(torch, st, probes, B, k, slabs: int, peak: float):
+    """Bound of a probe re-rank of int8 slab(s) on these inputs. Bytes: the
+    queries, probes and results, and every DISTINCT probed block once — its
+    count, the validity flags of its allocated prefix and, per live row,
+    ``slabs`` * D code bytes with a scale each, plus the norm. Operations: 2*D
+    per slab for every (query, probe, live row)."""
+    K, C, D = st.num_clusters, st.cluster_capacity, st.dim
+    live = (st.valid[: K * C].view(K, C)
+            & (torch.arange(C, device=probes.device) < st.counts[:K, None])).sum(1)
+    blocks = torch.unique(probes)
+    n_live = float(live[blocks].sum())
+    n_bytes = (B * D * 4 + probes.numel() * 4 + B * k * 12 + blocks.numel() * 4
+               + float(st.counts[blocks.long()].sum()) + n_live * (slabs * (D + 4) + 4))
+    n_ops = float(live[probes].sum()) * 2 * D * slabs
+    return bound_ms(n_bytes, n_ops, peak), int(blocks.numel())
 
 
 def time_ms(torch, fn, reps: int) -> float:
@@ -180,46 +250,114 @@ def kernel_parity(torch, V, R, device, B=1024, B_time=N_QUERIES):
     ms = time_ms(torch, lambda: R.ivf_rerank(st, qt, pt, 10, "cosine"), 20)
     plain_ms = time_ms(torch, lambda: R.ivf_rerank_reference(st, qt, pt, 10, "cosine"), 3)
     fill = float(st.valid[: K * st.cluster_capacity].float().mean())
+    (bound, by), blocks = probe_bound(torch, st, pt, B_time, 10, slabs=2, peak=PEAK_F32)
     print(f"timing: ivf_rerank B={B_time} P=2 C=128 D={st.dim} k=10 (live fill {fill:.3f}): "
-          f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+          f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms; bound {bound:.3f} ms by {by} "
+          f"({blocks} distinct blocks of {pt.numel()} probes, f32 rate)")
     del st
     torch.cuda.empty_cache()
     return {"max_abs_err": worst_err, "slot_agreement": worst_agree, "ms": ms,
-            "plain_ms": plain_ms}
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by}
 
 
-def main_path(torch, zt, V, R, tmp, base, queries):
-    """Phase 4: the library defaults through the facade. Returns the kernel
-    launch count of the run."""
+def one_slab(torch, st, dtype):
+    """``st`` as a state whose only slab is the coarse values in ``dtype``
+    (int8 keeps scales; the wave re-rank never reads a residual)."""
+    import dataclasses
+
+    if dtype == torch.int8:
+        return dataclasses.replace(st, residual=None, rscales=None)
+    vec = torch.empty(st.vectors.shape, dtype=dtype, device=st.device)
+    norms = torch.empty_like(st.norms)
+    for s in range(0, vec.shape[0], 65536):
+        x = (st.vectors[s : s + 65536].float() * st.scales[s : s + 65536, None]).to(dtype)
+        vec[s : s + 65536] = x
+        norms[s : s + 65536] = (x.float() ** 2).sum(-1)
+    return dataclasses.replace(st, vectors=vec, norms=norms, scales=None, residual=None,
+                               rscales=None)
+
+
+def wave_kernel_parity(torch, V, TX, device, B=1024, B_time=N_QUERIES):
+    """Phase 7: kernel 2 vs its plain version on the synthetic state, every
+    slab type, and both timed on the int8 slab at the refine path's shapes."""
+    full = synthetic_state(torch, V, device)
+    K = full.num_clusters
+    g = torch.Generator(device=device).manual_seed(SEED + 5)
+    q = torch.randn((B, full.dim), generator=g, device=device)
+    worst_agree, worst_err = 1.0, 0.0
+    for dtype in (torch.int8, torch.bfloat16, torch.float32):
+        st = one_slab(torch, full, dtype)
+        agree_t, err_t, swaps_t = 1.0, 0.0, 0
+        for P in (4, 3):
+            probes = synthetic_probes(torch, device, B, K, SEED + 6, P=P)
+            for metric in ("cosine", "l2", "sql2"):
+                for k in (10, 40, 128):
+                    got = TX.ivf_rerank_wave(st, q, probes, k, metric)
+                    want = TX.ivf_rerank_wave_reference(st, q, probes, k, metric)
+                    agree, err = compare(torch, got, want)
+                    check(agree >= MIN_SLOT_AGREEMENT,
+                          f"slot agreement {agree} < {MIN_SLOT_AGREEMENT}")
+                    check(not bool(got[2][0].any()), "query 0 probes only invalid rows")
+                    swaps, _ = tie_gap(torch, got[1], want[1], wave_d64(torch, st, q, metric))
+                    agree_t, err_t = min(agree_t, agree), max(err_t, err)
+                    swaps_t += swaps
+        print(f"parity: ivf_rerank_wave {str(dtype)[6:]} slab, P=4 and 3, 3 metrics x "
+              f"k=10/40/128, B={B}: worst slot agreement {agree_t:.6f}, max abs err "
+              f"{err_t:.3g}; {swaps_t} differing ranks, all ties (f64 gap <= {TIE_TOL})")
+        worst_agree, worst_err = min(worst_agree, agree_t), max(worst_err, err_t)
+        if dtype != torch.int8:
+            del st
+            torch.cuda.empty_cache()
+    st = one_slab(torch, full, torch.int8)
+    qt = torch.randn((B_time, st.dim), generator=g, device=device)
+    pt = synthetic_probes(torch, device, B_time, K, SEED + 7, P=4)
+    ms = time_ms(torch, lambda: TX.ivf_rerank_wave(st, qt, pt, 40, "cosine"), 20)
+    plain_ms = time_ms(torch, lambda: TX.ivf_rerank_wave_reference(st, qt, pt, 40, "cosine"), 2)
+    (bound, by), blocks = probe_bound(torch, st, pt, B_time, 40, slabs=1, peak=PEAK_BF16)
+    print(f"timing: ivf_rerank_wave B={B_time} P=4 C=128 D={st.dim} k=40 int8 (synthetic "
+          f"state): kernel {ms:.3f} ms, plain {plain_ms:.3f} ms; bound {bound:.3f} ms by {by} "
+          f"({blocks} distinct blocks of {pt.numel()} probes, bf16 rate)")
+    del st, full
+    torch.cuda.empty_cache()
+    return {"max_abs_err": worst_err, "ms": ms, "plain_ms": plain_ms}
+
+
+def main_path(torch, zt, V, tmp, base, queries, cfg, tag, counter):
+    """Phases 4 and 8: an IVF configuration through the facade. ``counter``
+    is the ``(module, attribute)`` of the launch count of the kernel the
+    configuration resolves to: set to 0 here, read at the end. Returns that
+    count, the open database, the inserted ids, and the base-row numbers of
+    the top-10 of the first 1024 held-out queries (after the remove)."""
     import numpy as np
     from zebra_tpu_torch.utils import device_sync
 
     (n, dim), n_queries = base.shape, queries.shape[0]
     path = os.path.join(tmp, "smoke.zebra")
-    R.LAUNCHES = 0
+    setattr(*counter, 0)
     V.EAGER_LARGE_K = 0
     t0 = time.perf_counter()
-    db = zt.Database.create(path, zt.DatabaseConfig(dim=dim))
+    db = zt.Database.create(path, cfg)
     ids = db.insert_vectors(base)
     device_sync()
     build_s = time.perf_counter() - t0
     st = db.index.stats()
-    print(f"insert: {n} x {dim} in {build_s:.2f} s = {n / build_s:.0f} rows/s "
+    print(f"{tag}insert: {n} x {dim} in {build_s:.2f} s = {n / build_s:.0f} rows/s "
           f"(durability={db.config.durability}, rerank={db.index.options.rerank}, "
+          f"refine={db.index.options.refine}, probes={db.index.options.resolved_probes()}, "
           f"clusters={st['clusters']}, C={st['cluster_capacity']}, "
           f"spare={st['spare_capacity']}, spare_used={st['spare_used']}, "
           f"max load={st['max_cluster_load']}, overflow={st['overflow']})")
     check(len(db) == n and st["overflow"] == 0, "rows lost on insert")
 
-    before = R.LAUNCHES
+    before = getattr(*counter)
     t0 = time.perf_counter()
     results = []
     for s in range(0, n_queries, 1024):
         results += db.query(queries[s : s + 1024], 10)
     qs = time.perf_counter() - t0
-    print(f"query: {n_queries} queries via db.query in batches of 1024: "
+    print(f"{tag}query: {n_queries} queries via db.query in batches of 1024: "
           f"{n_queries / qs:.0f} QPS (facade, results formatted)")
-    check(R.LAUNCHES > before, "db.query did not launch the kernel")
+    check(getattr(*counter) > before, "db.query did not launch the kernel")
     check(all(len(r) == 10 and all(np.isfinite(d) for _, d in r) for r in results),
           "every query must return 10 finite results")
 
@@ -228,20 +366,20 @@ def main_path(torch, zt, V, R, tmp, base, queries):
     _, exact, _ = V.brute_force(db.index.state, qt, 10, metric=db.index.metric)
     exact = exact.cpu().numpy()
     recall = float(np.mean([len(set(a) & set(b)) / 10 for a, b in zip(approx, exact)]))
-    print(f"recall@10: {recall:.4f} over 1024 held-out queries (vs the exact scan "
+    print(f"{tag}recall@10: {recall:.4f} over 1024 held-out queries (vs the exact scan "
           f"of the stored reconstruction)")
     check(recall >= MIN_RECALL, f"recall@10 {recall} < {MIN_RECALL}")
 
     pick = np.linspace(0, n - 1, 256).astype(np.int64)
     hits = db.query(base[pick], 1)
     self_rate = float(np.mean([h[0][0] == ids[i] for h, i in zip(hits, pick)]))
-    print(f"self-retrieval: {self_rate:.4f} over 256 inserted rows")
+    print(f"{tag}self-retrieval: {self_rate:.4f} over 256 inserted rows")
     check(self_rate == 1.0, "an inserted row did not retrieve itself")
 
     gone = ids[1000:1100]
     db.remove(gone)
     back = {i for row in db.query(base[1000:1100], 10) for i, _ in row} & set(gone)
-    print(f"remove: 100 ids removed, {len(back)} came back")
+    print(f"{tag}remove: 100 ids removed, {len(back)} came back")
     check(not back and len(db) == n - 100, "a removed id came back")
 
     probe_q = queries[:1024]
@@ -255,8 +393,12 @@ def main_path(torch, zt, V, R, tmp, base, queries):
     db = zt.Database.open(path)
     open_s = time.perf_counter() - t0
     got = [[i for i, _ in row] for row in db.query(probe_q, 10)]
-    print(f"save {save_s:.2f} s, open {open_s:.2f} s: same top-10 ids after reopen: {got == want}")
+    print(f"{tag}save {save_s:.2f} s, open {open_s:.2f} s: same top-10 ids after reopen: "
+          f"{got == want}")
     check(got == want and len(db) == n - 100, "reopened database answers differently")
+    check(db.config.index.rerank == cfg.index.rerank, "the manifest changed the stored rerank")
+    row_of = {i: r for r, i in enumerate(ids)}
+    approx_rows = np.array([[row_of[i] for i in row] for row in got])
 
     big = queries[:n_queries]
     db.index.search_arrays(big, 10)  # warm
@@ -267,12 +409,78 @@ def main_path(torch, zt, V, R, tmp, base, queries):
     t0 = time.perf_counter()
     db.query(big, 10)
     facade_qps = n_queries / (time.perf_counter() - t0)
-    print(f"query: batch {n_queries}: {dev_qps:.0f} QPS (index.search_arrays, "
+    print(f"{tag}query: batch {n_queries}: {dev_qps:.0f} QPS (index.search_arrays, "
           f"device synchronised), {facade_qps:.0f} QPS (db.query, results formatted)")
-    launches = R.LAUNCHES
-    print(f"launches: ivf_rerank {launches} over the main path; eager large-k "
+    launches = getattr(*counter)
+    print(f"{tag}launches: {counter[1]} {launches} over the path; eager large-k "
           f"fallbacks {V.EAGER_LARGE_K}")
-    return launches
+    check(launches > 0 and V.EAGER_LARGE_K == 0, "the path must run through its kernel")
+    return launches, db, ids, approx_rows
+
+
+def refine_path_stages(torch, V, TX, db, ids, queries, scan_rows):
+    """Phase 8, after the facade run (these launches come after the count
+    was read): kernel 2 on the path's own probes against its plain version,
+    the stages of one device query by CUDA events, the distinct probed
+    blocks, and both tiers' recall against this database's exact scan."""
+    import numpy as np
+
+    idx = db.index
+    st, metric = idx.state, idx.metric
+    P, kk = idx.options.resolved_probes(), idx.options.refine_k(10)
+    check((P, kk) == (4, 40), f"refine=4 must resolve to P=4, kk=40, got {(P, kk)}")
+    rec = {}
+    for B in (1024, queries.shape[0]):
+        qt = torch.from_numpy(queries[:B]).to(idx.device)
+        probes = V.select_probes(st, qt, P, metric, idx.options.probe_sel)
+        got = TX.ivf_rerank_wave(st, qt, probes, kk, metric)
+        want = TX.ivf_rerank_wave_reference(st, qt, probes, kk, metric)
+        # clustered data: near-equal distances swap by f32 summation order,
+        # so every differing rank is held to a tie (as phase 6 does)
+        agree, err = compare(torch, got, want)
+        swaps, gap = tie_gap(torch, got[1], want[1], wave_d64(torch, st, qt, metric))
+        print(f"refine parity: ivf_rerank_wave on the path's probes, B={B} P={P} k={kk}: "
+              f"slot agreement {agree:.6f}, max abs err {err:.3g}, valid results "
+              f"{int(got[2].sum())}; {swaps} differing ranks, all ties (largest f64 gap "
+              f"{gap:.3g} <= {TIE_TOL})")
+        ms = time_ms(torch, lambda: TX.ivf_rerank_wave(st, qt, probes, kk, metric), 20)
+        plain_ms = time_ms(
+            torch, lambda: TX.ivf_rerank_wave_reference(st, qt, probes, kk, metric), 2)
+        (bound, by), blocks = probe_bound(torch, st, probes, B, kk, slabs=1, peak=PEAK_BF16)
+        sel_ms = time_ms(
+            torch, lambda: V.select_probes(st, qt, P, metric, idx.options.probe_sel), 10)
+        ref_ms = time_ms(torch, lambda: V._refine_topk(st, qt, *got, 10, metric), 10)
+        spare = "spare empty, _merge_spare not run"
+        if idx._spare_used > 0:
+            sp = time_ms(torch, lambda: V._merge_spare(st, qt, *got, kk, metric, False), 5)
+            spare = f"_merge_spare {sp:.3f} ms"
+        whole_ms = time_ms(torch, lambda: idx._query_device(qt, 10, exact=False), 10)
+        print(f"refine stages, B={B}, one device query {whole_ms:.3f} ms: select_probes "
+              f"{sel_ms:.3f} ms, ivf_rerank_wave {ms:.3f} ms (plain {plain_ms:.3f} ms; bound "
+              f"{bound:.3f} ms by {by}, bf16 rate), {spare}, _refine_topk {ref_ms:.3f} ms; "
+              f"distinct probed blocks {blocks} of B*P = {B * P}")
+        rec = {"max_abs_err": max(err, rec.get("max_abs_err", 0.0)), "ms": ms,
+               "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by}
+        del got, want, probes
+
+    # both tiers against ONE oracle: this database's exact scan, by base row
+    qt = torch.from_numpy(queries[:1024]).to(idx.device)
+    row_of = {i: r for r, i in enumerate(ids)}
+
+    def rows(slots):
+        return [[row_of.get(i, -1) for i in idx._slot_ids.take_list(row)] for row in slots]
+
+    _, exact, _ = V.brute_force(st, qt, 10, metric=metric)
+    exact = rows(exact.cpu().numpy())
+    _, approx, _ = idx.search_arrays(queries[:1024], 10)
+
+    def recall(found):
+        return float(np.mean([len(set(a) & set(b)) / 10 for a, b in zip(found, exact)]))
+
+    print(f"recall@10 of the same 1024 held-out queries against this phase's exact scan "
+          f"(100 rows removed in both): refine=4 P=4 {recall(rows(approx)):.4f}; "
+          f"refine='scan' P=2 (phase 4's answers) {recall(scan_rows.tolist()):.4f}")
+    return rec
 
 
 def lsh_candidates(torch, device, S, B, M, seed):
@@ -333,7 +541,7 @@ def lsh_kernel_parity(torch, LR, device, S=2 * 1024 * 1024, D=DIM, B=1024, B_tim
                 ms = time_ms(torch, lambda: LR.lsh_rerank(*full, k=10), 5 if M <= 4096 else 2)
                 plain_ms = time_ms(torch, lambda: LR.lsh_rerank_reference(*full, k=10), 1)
                 n_valid = float(valid.sum())
-                bound = (B_time * M * 4 + n_valid * (8 + D * 4)) / 3.35e12 * 1e3
+                bound = (B_time * M * 4 + n_valid * (8 + D * 4)) / HBM_BYTES_S * 1e3
                 print(f"timing: lsh_rerank B={B_time} M={M} D={D} f32 k=10 "
                       f"({n_valid / B_time:.0f} valid candidates per query): kernel "
                       f"{ms:.3f} ms, plain {plain_ms:.3f} ms; bytes bound at 3.35 TB/s "
@@ -349,8 +557,8 @@ def lsh_kernel_parity(torch, LR, device, S=2 * 1024 * 1024, D=DIM, B=1024, B_tim
 def lsh_path(torch, zt, TB, LR, tmp, base, queries):
     """Phase 6: the LSH library defaults through the facade. Returns the
     kernel launch count of the run, and the kernel's max abs error against
-    its plain version and both times on the path's own candidates of 1024
-    held-out queries."""
+    its plain version, both times and its bound on the path's own candidates
+    of 1024 held-out queries."""
     import numpy as np
     from zebra_tpu_torch.utils import device_sync
 
@@ -475,7 +683,8 @@ def lsh_path(torch, zt, TB, LR, tmp, base, queries):
         gd, gp = LR.lsh_rerank(*args, metric=idx.metric, k=k)
         wd, wp = LR.lsh_rerank_reference(*args, metric=idx.metric, k=k)
         agree, err = compare(torch, (gd, gp, gp >= 0), (wd, wp, wp >= 0))
-        swaps, gap = tie_gap(torch, state.vectors, qt, c, norms, gp, wp, idx.metric)
+        swaps, gap = tie_gap(torch, gp, wp,
+                             lsh_d64(torch, state.vectors, qt, c, norms, idx.metric))
         print(f"parity: lsh_rerank on the path's candidates, k={k}: position agreement "
               f"{agree:.6f}, max abs err {err:.3g}, valid results {int((gp >= 0).sum())}; "
               f"{swaps} differing ranks, all ties (largest f64 gap {gap:.3g} <= {TIE_TOL})")
@@ -485,10 +694,19 @@ def lsh_path(torch, zt, TB, LR, tmp, base, queries):
     plain_ms = time_ms(torch, lambda: LR.lsh_rerank_reference(*args, k=10), 1)
     n_valid = float(valid.sum())
     B = c.shape[0]
-    bound = (c.numel() * 4 + n_valid * (8 + dim * 4)) / 3.35e12 * 1e3
+    stream = (c.numel() * 4 + n_valid * (8 + dim * 4)) / HBM_BYTES_S * 1e3
+    seen = torch.zeros(S, dtype=torch.bool, device=c.device)
+    seen[c[valid > 0].long()] = True
+    rows = int(seen.sum())
+    del seen
+    # each distinct slab row once, every flag, every valid candidate's slot and norm
+    lsh_bound = bound_ms(c.numel() * 4 + n_valid * 8 + rows * dim * 4 + B * (dim * 4 + 80),
+                         n_valid * 2 * dim, PEAK_F32)
     print(f"timing: lsh_rerank on the path's candidates, B={B} M={c.shape[1]} "
           f"({n_valid / B:.0f} valid per query): kernel {ms:.3f} ms, plain "
-          f"{plain_ms:.3f} ms; bytes bound at 3.35 TB/s {bound:.3f} ms")
+          f"{plain_ms:.3f} ms; every query reading its own rows is {stream:.3f} ms at "
+          f"3.35 TB/s; bound {lsh_bound[0]:.3f} ms by {lsh_bound[1]} ({rows} distinct slab "
+          f"rows among {n_valid:.0f} valid candidates, f32 rate)")
     del args, c, norms, valid, cand, cvalid
     torch.cuda.empty_cache()
     cand_ms = time_ms(torch, lambda: TB._candidates(state, qt, probes, mc, lossless), 2)
@@ -513,7 +731,109 @@ def lsh_path(torch, zt, TB, LR, tmp, base, queries):
           f"exact scan {exact_s * 1e3:.1f} ms (host clock, synchronised)")
     del db, idx, state
     torch.cuda.empty_cache()
-    return launches, worst_err, ms, plain_ms
+    return launches, worst_err, ms, plain_ms, lsh_bound
+
+
+def aug_path(torch, V, TX, device, K=16384, C=128, D=DIM, P=4, B=1024, B_time=N_QUERIES):
+    """Phase 9: the augmented-slab surface at the main path's sizing, on the
+    synthetic state of the JAX package's ablation tool (random rows, every
+    cluster full) with a tenth of the rows tombstoned so that the penalty
+    lane decides. Returns the launch count of the driven run and the bf16
+    kernel's record."""
+    launches, rec = 0, {}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype)[6:]
+        g = torch.Generator(device=device).manual_seed(SEED + 8)
+        vecs = torch.empty((K * C, D), dtype=dtype, device=device)
+        norms = torch.empty((K * C,), device=device)
+        for s in range(0, K * C, 65536):
+            x = torch.randn((min(65536, K * C - s), D), generator=g, device=device).to(dtype)
+            vecs[s : s + 65536] = x
+            norms[s : s + 65536] = (x.float() ** 2).sum(-1)
+        valid = torch.rand(K * C, generator=g, device=device) > 0.1
+        valid[:C] = False  # cluster 0: nothing live
+        counts = torch.full((K + 1,), C, dtype=torch.int32, device=device)
+        counts[K] = 0
+        st = V.IVFState(centroids=torch.randn((K, D), generator=g, device=device),
+                        counts=counts, vectors=vecs, norms=norms, valid=valid,
+                        overflow=torch.zeros((), dtype=torch.int32, device=device), ccap=C)
+        q = torch.randn((B_time, D), generator=g, device=device)
+        probes = V.select_probes(st, q, P, "cosine")
+        probes[0] = 0  # query 0 probes only the dead cluster
+        aug = TX.augment_slab(vecs, norms, valid, "cosine")
+        print(f"aug state ({name}): slab {tuple(vecs.shape)} "
+              f"{vecs.numel() * vecs.element_size() / 1e9:.2f} GB, augmented "
+              f"{tuple(aug.shape)} {aug.numel() * aug.element_size() / 1e9:.2f} GB, "
+              f"{float(valid.float().mean()):.3f} live")
+
+        # the driven run: centroid top-P -> ivf_rerank_aug, f32 dots and one-pass
+        TX.LAUNCHES_AUG = 0
+        want_slots = TX.ivf_rerank_wave(st, q[:B], probes[:B], 10, "cosine")[1]
+        for exact in (True, False):
+            d, slots, ok = TX.ivf_rerank_aug(aug, C, q[:B], probes[:B], 10, "cosine", exact=exact)
+            torch.cuda.synchronize()
+            check(tuple(d.shape) == (B, 10) and bool(ok[1:].all()) and not bool(ok[0].any()),
+                  "aug re-rank: every query but the dead-cluster one has 10 results")
+            check(bool(torch.isfinite(d[ok]).all()) and bool(valid[slots[ok]].all()),
+                  "aug re-rank returned a dead row or a non-finite distance")
+            overlap = float((slots[1:, :, None] == want_slots[1:, None, :]).any(-1).float().mean())
+            print(f"aug path ({name}, exact={exact}): top-10 overlap with the one-slab re-rank "
+                  f"of the raw slab {overlap:.4f}")
+            check(overlap >= 0.9, f"aug re-rank disagrees with the raw slab's: {overlap}")
+        launches += TX.LAUNCHES_AUG
+        check(TX.LAUNCHES_AUG == 2, "ivf_rerank_aug did not launch its kernel")
+
+        # kernel vs plain version on this state
+        worst_agree, worst_err, swaps_t = 1.0, 0.0, 0
+        for metric in ("cosine", "l2", "sql2"):
+            if metric != "cosine":
+                del aug
+                torch.cuda.empty_cache()
+                aug = TX.augment_slab(vecs, norms, valid, metric)
+            w = TX.aug_query(q[:B], metric)
+            for exact in (True, False):
+                ww = TX._aug_w(aug, w, exact)  # the query as the kernel multiplies it
+
+                def d64(b, slot):
+                    return (aug[slot].double() * ww[b].double()).sum(-1)
+
+                for k in (10, 128):
+                    got = TX.ivf_rerank_aug(aug, C, q[:B], probes[:B], k, metric, exact=exact)
+                    want = TX.ivf_rerank_aug_reference(aug, C, q[:B], probes[:B], k, metric,
+                                                       exact=exact)
+                    agree, err = compare(torch, got, want)
+                    check(agree >= MIN_SLOT_AGREEMENT,
+                          f"slot agreement {agree} < {MIN_SLOT_AGREEMENT}")
+                    check(not bool(got[2][0].any()), "query 0 probes only dead rows")
+                    swaps, _ = tie_gap(torch, got[1], want[1], d64)
+                    worst_agree, worst_err = min(worst_agree, agree), max(worst_err, err)
+                    swaps_t += swaps
+        print(f"parity: ivf_rerank_aug {name} slab, 3 metrics x exact on/off x k=10/128, "
+              f"B={B} P={P}: worst slot agreement {worst_agree:.6f}, max abs err "
+              f"{worst_err:.3g}; {swaps_t} differing ranks, all ties (f64 gap <= {TIE_TOL})")
+
+        # timing on the sql2 slab left from the loop (same bytes for every metric)
+        for Bt in (B, B_time):
+            args = (aug, C, q[:Bt], probes[:Bt], 10, "sql2")
+            ms = time_ms(torch, lambda: TX.ivf_rerank_aug(*args), 20 if Bt == B else 5)
+            ms1 = time_ms(torch, lambda: TX.ivf_rerank_aug(*args, exact=False),
+                          20 if Bt == B else 5)
+            plain_ms = time_ms(torch, lambda: TX.ivf_rerank_aug_reference(*args), 2)
+            blocks = int(torch.unique(probes[:Bt]).numel())
+            Da, item = aug.shape[1], aug.element_size()
+            n_bytes = blocks * C * Da * item + Bt * (Da * 4 + P * 4 + 10 * 8)
+            bound, by = bound_ms(n_bytes, Bt * P * C * Da * 2, PEAK_F32)
+            print(f"timing: ivf_rerank_aug {name} B={Bt} P={P} C={C} D+128={Da} k=10: kernel "
+                  f"{ms:.3f} ms (exact), {ms1:.3f} ms (exact=False), plain {plain_ms:.3f} ms; "
+                  f"bound {bound:.3f} ms by {by} ({blocks} distinct blocks of {Bt * P} probes, "
+                  f"f32 rate); whole blocks per query are "
+                  f"{Bt * P * C * Da * item / HBM_BYTES_S * 1e3:.3f} ms at 3.35 TB/s")
+            if dtype == torch.bfloat16 and Bt == B:
+                rec = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by}
+        rec["max_abs_err"] = max(worst_err, rec.get("max_abs_err", 0.0))
+        del st, vecs, norms, valid, aug, q, probes, args, w, ww
+        torch.cuda.empty_cache()
+    return launches, rec
 
 
 def main() -> int:
@@ -526,12 +846,13 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     try:
         import zebra_tpu_torch as zt
-        from bench import make_data
         from zebra_tpu_torch.index import buckets as TB
         from zebra_tpu_torch.index import ivf as V
         from zebra_tpu_torch.ops import _kernels
+        from zebra_tpu_torch.ops import experimental_ivf as TX
         from zebra_tpu_torch.ops import ivf_rerank as R
         from zebra_tpu_torch.ops import lsh_rerank as LR
+        from zebra_tpu_torch.utils import make_data
     except ImportError as e:
         print(f"chip_smoke: cannot import the port ({e}); run from the repository root",
               file=sys.stderr)
@@ -545,17 +866,23 @@ def main() -> int:
     print(smi[0])
     check(not torch.backends.cuda.matmul.allow_tf32, "TF32 matmuls must stay off")
     device = torch.device("cuda", 0)
+    t_start = time.perf_counter()
 
     # phase 2: build, one nvcc per kernel, all at once
-    kernels = ("ivf_rerank", "lsh_rerank")
+    kernels = ("ivf_rerank", "lsh_rerank", "ivf_rerank_wave", "ivf_rerank_aug")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(kernels)) as pool:
         list(pool.map(_kernels.load, kernels))
     print(f"build: {', '.join(kernels)} in {time.perf_counter() - t0:.2f} s")
     for name in kernels:
-        for line in _kernels.BUILD_LOG.get(name, "").splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"ptxas {name}: {line.strip()}")
+        log = _kernels.BUILD_LOG.get(name, "")
+        regs = [int(line.split("Used ")[1].split()[0]) for line in log.splitlines()
+                if "Used " in line and "registers" in line]
+        spills = sum("spill" in line and " 0 bytes spill stores" not in line
+                     for line in log.splitlines())
+        if regs:
+            print(f"ptxas {name}: {len(regs)} kernels, {min(regs)}-{max(regs)} registers, "
+                  f"{spills} with spills")
 
     # phase 3: IVF kernel parity and timing
     rec = kernel_parity(torch, V, R, device)
@@ -563,16 +890,20 @@ def main() -> int:
     t0 = time.perf_counter()
     data = make_data(N_ROWS + N_QUERIES, DIM, SEED)
     base, queries = data[:N_ROWS], data[N_ROWS:]
-    print(f"data: {N_ROWS} + {N_QUERIES} x {DIM} (bench.make_data, seed {SEED}) in "
+    print(f"data: {N_ROWS} + {N_QUERIES} x {DIM} (utils.make_data, seed {SEED}) in "
           f"{time.perf_counter() - t0:.2f} s")
 
-    # phase 4: the IVF path
+    # phase 4: the IVF path at the library defaults
     tmp = tempfile.mkdtemp(prefix="zebra_smoke_")
     try:
-        launches = main_path(torch, zt, V, R, tmp, base, queries)
+        launches, db, _, scan_rows = main_path(
+            torch, zt, V, tmp, base, queries, zt.DatabaseConfig(dim=DIM), "", (R, "LAUNCHES"))
+        check(db.index.options.rerank == "cuda" and db.index.options.refine == "scan",
+              "the bare defaults must resolve to the probe kernel in scan mode")
+        del db
+        torch.cuda.empty_cache()
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    check(launches > 0, "the main path never launched ivf_rerank")
 
     # phase 5: LSH kernel parity and timing
     lsh_rec = lsh_kernel_parity(torch, LR, device)
@@ -580,30 +911,53 @@ def main() -> int:
     # phase 6: the LSH path
     tmp = tempfile.mkdtemp(prefix="zebra_smoke_lsh_")
     try:
-        lsh_launches, path_err, lsh_ms, lsh_plain_ms = lsh_path(
+        lsh_launches, path_err, lsh_ms, lsh_plain_ms, lsh_bound = lsh_path(
             torch, zt, TB, LR, tmp, base, queries)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
-    print(json.dumps({"kernels": [{
-        "name": "ivf_rerank",
-        "route": "cuda",
-        "source": "zebra_tpu_torch/csrc/ivf_rerank.cu",
-        "replaces": "zebra_tpu/ops/pallas_ivf.py:72",
-        "launches": launches,
-        "max_abs_err": rec["max_abs_err"],
-        "ms": rec["ms"],
-        "plain_ms": rec["plain_ms"],
-    }, {
-        "name": "lsh_rerank",
-        "route": "cuda",
-        "source": "zebra_tpu_torch/csrc/lsh_rerank.cu",
-        "replaces": "zebra_tpu/ops/pallas_rerank.py:48",
-        "launches": lsh_launches,
-        "max_abs_err": max(lsh_rec["max_abs_err"], path_err),
-        "ms": lsh_ms,
-        "plain_ms": lsh_plain_ms,
-    }]}))
+    # phase 7: wave kernel parity and timing
+    wave_rec = wave_kernel_parity(torch, V, TX, device)
+
+    # phase 8: the gather-refine path through the wave kernel
+    tmp = tempfile.mkdtemp(prefix="zebra_smoke_refine_")
+    try:
+        cfg = zt.DatabaseConfig(dim=DIM, index=zt.IndexOptions(refine=4, rerank="pallas2"))
+        R.LAUNCHES = 0
+        wave_launches, db, ids, _ = main_path(
+            torch, zt, V, tmp, base, queries, cfg, "refine ", (TX, "LAUNCHES_WAVE"))
+        check(db.index.options.rerank == "cuda2" and R.LAUNCHES == 0,
+              "refine=4 with rerank='pallas2' must run the wave kernel, never the probe kernel")
+        path_rec = refine_path_stages(torch, V, TX, db, ids, queries, scan_rows)
+        del db, ids
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    del data, base, queries
+
+    # phase 9: the augmented-slab surface
+    aug_launches, aug_rec = aug_path(torch, V, TX, device)
+    print(f"launches: ivf_rerank {launches}, lsh_rerank {lsh_launches}, ivf_rerank_wave "
+          f"{wave_launches}, ivf_rerank_aug {aug_launches} over their paths; the whole run "
+          f"took {time.perf_counter() - t_start:.0f} s after the card check")
+
+    def entry(name, replaces, n, r):
+        return {"name": name, "route": "cuda", "source": f"zebra_tpu_torch/csrc/{name}.cu",
+                "replaces": replaces, "launches": n, "max_abs_err": r["max_abs_err"],
+                "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                "bound_by": r["bound_by"],
+                # no single PyTorch call gathers, scores and selects per query
+                "library_ms": None}
+
+    print(json.dumps({"kernels": [
+        entry("ivf_rerank", "zebra_tpu/ops/pallas_ivf.py:72", launches, rec),
+        entry("lsh_rerank", "zebra_tpu/ops/pallas_rerank.py:48", lsh_launches,
+              {"max_abs_err": max(lsh_rec["max_abs_err"], path_err), "ms": lsh_ms,
+               "plain_ms": lsh_plain_ms, "bound_ms": lsh_bound[0], "bound_by": lsh_bound[1]}),
+        entry("ivf_rerank_wave", "zebra_tpu/ops/experimental_ivf.py:34", wave_launches,
+              {**path_rec, "max_abs_err": max(wave_rec["max_abs_err"], path_rec["max_abs_err"])}),
+        entry("ivf_rerank_aug", "zebra_tpu/ops/experimental_ivf.py:178", aug_launches, aug_rec),
+    ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

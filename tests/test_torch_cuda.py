@@ -1,6 +1,7 @@
 """The torch port on a CUDA card: the hand-written kernels (IVF probe
-re-rank, LSH candidate re-rank) against their plain versions, and the
-facade's main paths through them.
+re-rank, LSH candidate re-rank, one-slab wave re-rank, augmented-slab
+re-rank) against their plain versions, and the facade's main paths through
+them.
 
 Imports neither JAX nor the JAX package, so it runs where only torch is
 installed. Every test needs a card and skips without one; on the card:
@@ -15,12 +16,15 @@ neighbours sit within that rounding of each other, so slots agree on >= 99%
 of positions (near-ties may swap), and validity exactly.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 import zebra_tpu_torch as T
 from zebra_tpu_torch.index import ivf as TV
+from zebra_tpu_torch.ops import experimental_ivf as TX
 from zebra_tpu_torch.ops import ivf_rerank as TR
 
 pytestmark = pytest.mark.cuda
@@ -212,3 +216,124 @@ def test_lsh_facade_goes_through_the_kernel(cuda, tmp_path):
     again = T.Database.open(path)
     assert len(again) == 4086
     assert [row[0][0] for row in again.query(x[10:100], 1)] == ids[10:100]
+
+
+# -- kernel 2: the one-slab wave re-rank (csrc/ivf_rerank_wave.cu) --------------
+
+
+def _one_slab(st, dtype):
+    """The int8 + residual state ``st`` as a one-slab state of ``dtype``
+    (int8 keeps the pair: the wave re-rank never reads the residual)."""
+    if dtype == torch.int8:
+        return st
+    vec = (st.vectors.float() * st.scales[:, None]
+           + st.residual.float() * st.rscales[:, None]).to(dtype)
+    return dataclasses.replace(st, vectors=vec, norms=(vec.float() ** 2).sum(-1),
+                               scales=None, residual=None, rscales=None)
+
+
+@pytest.mark.parametrize("metric", ["cosine", "l2", "sql2"])
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", [768, 100])  # 16-byte chunks, element path
+def test_wave_kernel_matches_plain_version(cuda, metric, dtype, d):
+    st, x = _state(cuda, d)
+    st = _one_slab(st, dtype)
+    q = torch.from_numpy(x[:256] + 0.05).to(cuda)
+    probes = TV.select_probes(st, q, 3, metric)  # odd P: no padding is needed
+    probes[0, 0] = 0  # the fully tombstoned cluster
+    for k in (10, 40, 128):
+        before = TX.LAUNCHES_WAVE
+        got = TX.ivf_rerank_wave(st, q, probes, k, metric)
+        assert TX.LAUNCHES_WAVE == before + 1
+        _check(got, TX.ivf_rerank_wave_reference(st, q, probes, k, metric), q, metric)
+
+
+def test_wave_kernel_refuses_what_it_does_not_take(cuda):
+    st, x = _state(cuda, 64)
+    q = torch.from_numpy(x[:4]).to(cuda)
+    probes = TV.select_probes(st, q, 2, "cosine")
+    with pytest.raises(ValueError, match="k <= 128"):
+        TX.ivf_rerank_wave(st, q, probes, 129)
+    with pytest.raises(ValueError, match="shared"):
+        TX.ivf_rerank_wave(st, q, probes.repeat(1, 500), 10)
+    with pytest.raises(ValueError, match="scales"):
+        TX.ivf_rerank_wave(dataclasses.replace(st, scales=None), q, probes, 10)
+
+
+@pytest.mark.parametrize("k", [10, 33])  # kk = 40 -> the kernel; kk = 132 -> eager
+def test_refine_query_cuda2_matches_its_plain_route(cuda, k, monkeypatch):
+    """refine=N through the wave kernel against the same route through the
+    kernel's plain version (the eager route scores an unrounded query, so it
+    is no yardstick here: the refine pass inverts whatever the coarse stage
+    gave it)."""
+    st, x = _state(cuda, 256)
+    q = torch.from_numpy(x[::10]).to(cuda)
+    kk = max(4 * k, k + 16)
+    wave, probe, large = TX.LAUNCHES_WAVE, TR.LAUNCHES, TV.EAGER_LARGE_K
+    a = TV.query(st, q, k, num_probes=4, rerank="cuda2", refine_k=kk)
+    assert TR.LAUNCHES == probe
+    assert (TX.LAUNCHES_WAVE > wave) == (kk <= 128)
+    assert TV.EAGER_LARGE_K == large + (kk > 128)
+    # scan mode has no wave form: "cuda2" runs the probe kernel there
+    TV.query(st, q, k, num_probes=4, rerank="cuda2", refine_k=kk, refine_scan=True)
+    assert TR.LAUNCHES == probe + 1
+    monkeypatch.setattr(TX, "ivf_rerank_wave", TX.ivf_rerank_wave_reference)
+    b = TV.query(st, q, k, num_probes=4, rerank="cuda2", refine_k=kk)
+    _check(a, b, q, "cosine")
+
+
+def test_refine_facade_goes_through_the_wave_kernel(cuda, tmp_path):
+    x = _blobs(9, 4096, 128)
+    path = str(tmp_path / "r.zebra")
+    cfg = T.DatabaseConfig(dim=128, index=T.IndexOptions(refine=4, rerank="pallas2"))
+    db = T.Database.create(path, cfg)
+    assert db.index.options.rerank == "cuda2"
+    ids = db.insert_vectors(x)
+    wave, probe = TX.LAUNCHES_WAVE, TR.LAUNCHES
+    top1 = db.query(x[:100], 1)
+    assert TX.LAUNCHES_WAVE > wave and TR.LAUNCHES == probe
+    assert [row[0][0] for row in top1] == ids[:100]
+    db.remove(ids[:10])
+    db.save()
+    again = T.Database.open(path)
+    assert again.config.index.rerank == "pallas2"  # the manifest keeps the user's word
+    assert len(again) == 4086
+    assert [row[0][0] for row in again.query(x[10:100], 1)] == ids[10:100]
+
+
+# -- kernel 3: the augmented-slab re-rank (csrc/ivf_rerank_aug.cu) --------------
+
+
+@pytest.mark.parametrize("metric", ["cosine", "l2", "sql2"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("exact", [True, False])
+@pytest.mark.parametrize("d", [768, 100])  # 16-byte chunks; element path for bf16
+def test_aug_kernel_matches_plain_version(cuda, metric, dtype, exact, d):
+    st, x = _state(cuda, d)
+    st = _one_slab(st, dtype)
+    aug = TX.augment_slab(st.vectors, st.norms, st.valid, metric)
+    assert aug.shape == (st.slab_capacity, d + TX.AUG) and aug.dtype == dtype
+    q = torch.from_numpy(x[:256] + 0.05).to(cuda)
+    probes = TV.select_probes(st, q, 4, metric)
+    probes[0] = 0  # only the fully tombstoned cluster: nothing valid
+    C = st.cluster_capacity
+    for k in (10, 128):
+        before = TX.LAUNCHES_AUG
+        got = TX.ivf_rerank_aug(aug, C, q, probes, k, metric, exact=exact)
+        assert TX.LAUNCHES_AUG == before + 1
+        assert not bool(got[2][0].any())
+        _check(got, TX.ivf_rerank_aug_reference(aug, C, q, probes, k, metric, exact=exact),
+               q, metric)
+
+
+def test_aug_kernel_refuses_what_it_does_not_take(cuda):
+    st, x = _state(cuda, 64)
+    aug = TX.augment_slab(_one_slab(st, torch.float32).vectors, st.norms, st.valid)
+    q = torch.from_numpy(x[:4]).to(cuda)
+    probes = TV.select_probes(st, q, 2, "cosine")
+    with pytest.raises(ValueError, match="even"):
+        TX.ivf_rerank_aug(aug, st.cluster_capacity, q, probes[:, :1], 10)
+    with pytest.raises(ValueError, match="k <= 128"):
+        TX.ivf_rerank_aug(aug, st.cluster_capacity, q, probes, 129)
+    with pytest.raises(ValueError, match="f32 or bf16"):
+        TX.ivf_rerank_aug(aug.half(), st.cluster_capacity, q, probes, 10)

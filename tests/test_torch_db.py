@@ -1,8 +1,12 @@
 """The torch port's ``Database`` facade on the CPU, and databases crossing
 between the two packages: a database written by one opens in the other and
 answers the same top-10 (ids equal, distances within 1e-4: both score the
-same stored int8 + residual reconstruction in f32)."""
+same stored int8 + residual reconstruction in f32) — at the library defaults
+(``refine="scan"``) and on the gather-refine tier (``refine=4``, with and
+without ``rerank="pallas2"``, which both packages run as their plain re-rank
+on a CPU)."""
 
+import json
 import os
 import subprocess
 import sys
@@ -79,6 +83,99 @@ def test_port_written_database_opens_in_jax(tmp_path):
     assert len(jdb) == N - 20
     assert_same_results(jdb.query(queries, 10), want)
     jdb.close()
+
+
+REFINE_TIERS = [dict(refine=4), dict(refine=4, rerank="pallas2")]
+
+
+@pytest.mark.parametrize("options", REFINE_TIERS, ids=["refine4", "refine4-pallas2"])
+def test_jax_written_refine_database_opens_in_the_port(tmp_path, options):
+    base, queries = _data(4)
+    path = str(tmp_path / "jr.zebra")
+    jdb = Z.Database.create(path, Z.DatabaseConfig(dim=DIM, index=Z.IndexOptions(**options)))
+    ids = jdb.insert_vectors(base)
+    jdb.remove(ids[:20])
+    want = jdb.query(queries, 10)
+    jdb.close()
+    tdb = T.Database.open(path)
+    assert len(tdb) == N - 20
+    assert tdb.index.options.refine == 4 and tdb.index.options.rerank == "eager"
+    assert_same_results(tdb.query(queries, 10), want)
+    # the manifest keeps the user's word through a save by the port
+    tdb.insert_vectors(queries[:8])
+    tdb.save()
+    tdb.close()
+    with open(path) as f:
+        assert json.load(f)["config"]["index"]["rerank"] == options.get("rerank", "auto")
+    assert T.Database.open(path).config.index.rerank == options.get("rerank", "auto")
+
+
+@pytest.mark.parametrize("options", REFINE_TIERS, ids=["refine4", "refine4-pallas2"])
+def test_port_written_refine_database_opens_in_jax(tmp_path, options):
+    base, queries = _data(5)
+    path = str(tmp_path / "pr.zebra")
+    tdb = T.Database.create(path, T.DatabaseConfig(dim=DIM, index=T.IndexOptions(**options)))
+    ids = tdb.insert_vectors(base)
+    tdb.remove(ids[:20])
+    want = tdb.query(queries, 10)
+    assert tdb.query(base[100:150], 1) == [[(i, pytest.approx(0.0, abs=1e-5))]
+                                           for i in ids[100:150]]
+    tdb.close()
+    jdb = Z.Database.open(path)
+    assert len(jdb) == N - 20
+    assert jdb.config.index.refine == 4
+    assert jdb.config.index.rerank == options.get("rerank", "auto")
+    assert_same_results(jdb.query(queries, 10), want)
+    jdb.close()
+
+
+@pytest.mark.parametrize("rerank", ["pallas", "pallas2"])
+def test_explicit_pallas_rerank_pads_the_stored_width(tmp_path, rerank):
+    """An explicit "pallas*" stores IVF rows at the next multiple of 128
+    columns in the JAX package; the port keeps that layout, so a 64-dim
+    database crosses in both directions (snapshot and log)."""
+    rng = np.random.default_rng(7)
+    centers = rng.standard_normal((20, 64)).astype(np.float32)
+    x = centers[rng.integers(0, 20, 2080)] + 0.15 * rng.standard_normal((2080, 64)).astype(np.float32)
+    base, queries = x[:2048], x[2048:]
+    opts = dict(refine=4, rerank=rerank)
+    jpath, tpath = str(tmp_path / "j.zebra"), str(tmp_path / "t.zebra")
+    jdb = Z.Database.create(jpath, Z.DatabaseConfig(dim=64, index=Z.IndexOptions(**opts)))
+    jdb.insert_vectors(base)
+    jdb.save()
+    jdb.insert_vectors(queries[:4])  # logged, not saved
+    want = jdb.query(queries, 10)
+    tdb = T.Database.open(jpath)
+    assert tdb.index.state.dim == 128 and len(tdb) == 2052
+    assert_same_results(tdb.query(queries, 10), want)
+    assert_same_results(tdb.index.search(queries, 10, exact=True),
+                        jdb.index.search(queries, 10, exact=True))
+    tdb = T.Database.create(tpath, T.DatabaseConfig(dim=64, index=T.IndexOptions(**opts)))
+    tdb.insert_vectors(base)
+    tdb.save()
+    tdb.insert_vectors(queries[:4])
+    want = tdb.query(queries, 10)
+    jdb = Z.Database.open(tpath)
+    assert jdb.index.state.vectors.shape[1] == 128 and len(jdb) == 2052
+    assert_same_results(jdb.query(queries, 10), want)
+
+
+def test_refine_wal_replays_in_both_packages(tmp_path):
+    """The q8 record is the same under refine=4: an unsaved database comes
+    back from the log in either package."""
+    base, queries = _data(6)
+    path = str(tmp_path / "rw.zebra")
+    cfg = T.DatabaseConfig(dim=DIM, index=T.IndexOptions(refine=4, rerank="pallas2"))
+    tdb = T.Database.create(path, cfg)
+    ids = tdb.insert_vectors(base)
+    tdb.remove(ids[:10])
+    want = tdb.query(queries, 10)
+    replayed = T.Database.open(path)
+    assert len(replayed) == N - 10
+    assert_same_results(replayed.query(queries, 10), want)
+    jdb = Z.Database.open(path)
+    assert len(jdb) == N - 10
+    assert_same_results(jdb.query(queries, 10), want)
 
 
 def test_wal_replays_on_open_in_both_packages(tmp_path):

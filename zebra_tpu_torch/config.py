@@ -262,20 +262,23 @@ class IndexOptions:
     def resolved_rerank(self, dim: int, index_type: str | None = None,
                         device: str = "cpu") -> str:
         """Concrete re-rank backend for a ``dim``-wide index whose state
-        lives on ``device``: "cuda" (the hand-written kernel of the index
-        type: ``csrc/ivf_rerank.cu`` for IVF, ``csrc/lsh_rerank.cu`` for
-        LSH) on a CUDA device, "eager" (the plain torch re-rank, the JAX
-        package's "xla" path) everywhere else. Every stored value resolves
-        by device: "auto", and the JAX package's "pallas" / "pallas2" /
-        "xla" read from an existing manifest, all name a re-rank of the same
-        semantics, and the port has one kernel for it. Manifests keep
-        persisting what the user wrote, so each opening process
-        re-resolves for its own device (an explicit LSH "pallas" still pads
-        the stored width, see ``index/lsh.py``)."""
+        lives on ``device``. On a CUDA device: "cuda2" for IVF with a stored
+        "pallas2" (the one-slab wave kernel ``csrc/ivf_rerank_wave.cu``, as
+        "pallas2" selects the JAX package's wave-2 kernel; scan mode has no
+        wave form and runs the probe kernel, see ``ivf.query``), else "cuda"
+        (the kernel of the index type: ``csrc/ivf_rerank.cu`` for IVF,
+        ``csrc/lsh_rerank.cu`` for LSH). Everywhere else "eager" (the plain
+        torch re-rank, the JAX package's "xla" path, which is also what it
+        maps every "pallas*" to on a CPU). "auto", "pallas" and "xla" all
+        name a re-rank of the same semantics. Neither "cuda" nor "cuda2" is
+        ever stored: manifests keep persisting what the user wrote, so each
+        opening process re-resolves for its own device (an explicit LSH
+        "pallas" still pads the stored width, see ``index/lsh.py``)."""
         del dim  # the kernels take any stored width
-        if (index_type or self.index_type) in ("ivf", "lsh") and str(device).startswith("cuda"):
-            return "cuda"
-        return "eager"
+        t = index_type or self.index_type
+        if t not in ("ivf", "lsh") or not str(device).startswith("cuda"):
+            return "eager"
+        return "cuda2" if t == "ivf" and self.rerank == "pallas2" else "cuda"
 
     def concrete(self, dim: int, index_type: str | None = None,
                  device: str = "cpu") -> "IndexOptions":

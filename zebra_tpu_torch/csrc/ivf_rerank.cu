@@ -24,56 +24,14 @@
 //   the flattened [P*C] probe axis; k <= 128.
 // Row offsets are 64-bit: S*D passes 2^31 at the 4M x 768 capacity scale.
 
-#include <cuda_runtime.h>
-#include <climits>
-#include <cmath>
-#include <cstdint>
+#include "rerank_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr float kBig = 3.0e38f;  // masked-candidate sentinel (pallas_ivf.BIG)
+using namespace zt;
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ bool before(float d, int p, float bd, int bp) {
-  return d < bd || (d == bd && p < bp);
-}
-
-__device__ __forceinline__ void warp_argmin(float& d, int& p) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    const float od = __shfl_xor_sync(0xffffffffu, d, o);
-    const int op = __shfl_xor_sync(0xffffffffu, p, o);
-    if (before(od, op, d, p)) {
-      d = od;
-      p = op;
-    }
-  }
-}
-
-// <q, w> over 4 int8 codes packed little-endian in one 32-bit word
-__device__ __forceinline__ float dot4(int w, float4 q, float acc) {
-  acc = fmaf(q.x, static_cast<float>((w << 24) >> 24), acc);
-  acc = fmaf(q.y, static_cast<float>((w << 16) >> 24), acc);
-  acc = fmaf(q.z, static_cast<float>((w << 8) >> 24), acc);
-  return fmaf(q.w, static_cast<float>(w >> 24), acc);
-}
-
-__device__ __forceinline__ float dot16(int4 w, const float4 (&q)[4], float acc) {
-  acc = dot4(w.x, q[0], acc);
-  acc = dot4(w.y, q[1], acc);
-  acc = dot4(w.z, q[2], acc);
-  return dot4(w.w, q[3], acc);
-}
-
-// NCH > 0: D % 16 == 0 and D <= 512*NCH; lane l owns the 16-element chunks
-// l + 32*i (i < NCH) and loads them as int4. NCH == 0: any D, byte loads.
+// NCH > 0: lane l owns the 16-element chunks l + 32*i (i < NCH) and loads
+// them as int4 (see rerank_common.cuh). NCH == 0: any D, byte loads.
 template <int NCH>
 __global__ void __launch_bounds__(kThreads) ivf_rerank_kernel(
     const float* __restrict__ q, const int32_t* __restrict__ probes,
@@ -82,15 +40,16 @@ __global__ void __launch_bounds__(kThreads) ivf_rerank_kernel(
     const float* __restrict__ rscales, const float* __restrict__ norms,
     const uint8_t* __restrict__ valid, float* __restrict__ out_d,
     int64_t* __restrict__ out_s, int P, int C, int D, int k, int metric) {
-  extern __shared__ float smem[];
-  float* qs = smem;        // [D] the query
-  float* dist = smem + D;  // [P*C] candidate distances
-  __shared__ float red_d[kWarps];
-  __shared__ int red_p[kWarps];
+  extern __shared__ float4 smem4[];
+  float* qs = reinterpret_cast<float*>(smem4);  // [D] the query
+  float* dist = qs + D;                         // [P*C] candidate distances
+  __shared__ float sel_d[kMaxK];
+  __shared__ int sel_p[kMaxK];
 
   const int b = blockIdx.x;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const float* qb = q + static_cast<int64_t>(b) * D;
+  const int32_t* pb = probes + static_cast<int64_t>(b) * P;
 
   float part = 0.f;
   for (int d = tid; d < D; d += kThreads) {
@@ -98,25 +57,13 @@ __global__ void __launch_bounds__(kThreads) ivf_rerank_kernel(
     qs[d] = v;
     part = fmaf(v, v, part);
   }
-  part = warp_sum(part);
-  if (lane == 0) red_d[warp] = part;
-  __syncthreads();
-  float qn2 = 0.f;
-#pragma unroll
-  for (int w = 0; w < kWarps; ++w) qn2 += red_d[w];
+  const float qn2 = block_sum(part);
 
-  float4 qr[NCH > 0 ? NCH : 1][4];
-#pragma unroll
-  for (int i = 0; i < NCH; ++i) {
-    const int e = (lane + 32 * i) * 16;
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      qr[i][j] = e < D ? reinterpret_cast<const float4*>(qs + e)[j]
-                       : make_float4(0.f, 0.f, 0.f, 0.f);
-  }
+  float qr[NCH > 0 ? NCH : 1][ElemI8::kVec];
+  load_query_chunks<ElemI8, NCH>(qs, D, lane, qr);
 
   for (int p = 0; p < P; ++p) {
-    const int c = probes[static_cast<int64_t>(b) * P + p];
+    const int c = pb[p];
     const int cnt = min(max(counts[c], 0), C);
     for (int r = warp; r < C; r += kWarps) {
       const int pos = p * C + r;
@@ -129,28 +76,26 @@ __global__ void __launch_bounds__(kThreads) ivf_rerank_kernel(
       const int8_t* vrow = vec + slot * D;
       const int8_t* rrow = res != nullptr ? res + slot * D : nullptr;
       float hi = 0.f, lo = 0.f;
-      if (NCH > 0) {
+      if constexpr (NCH > 0) {
+        // the two slabs' chunks load side by side: twice the bytes in flight
 #pragma unroll
         for (int i = 0; i < NCH; ++i) {
-          const int e = (lane + 32 * i) * 16;
+          const int e = (lane + 32 * i) * ElemI8::kVec;
           if (e < D) {
-            hi = dot16(__ldg(reinterpret_cast<const int4*>(vrow + e)), qr[i], hi);
-            if (rrow != nullptr)
-              lo = dot16(__ldg(reinterpret_cast<const int4*>(rrow + e)), qr[i], lo);
+            hi = ElemI8::dot_chunk(vrow, e, qr[i], hi);
+            if (rrow != nullptr) lo = ElemI8::dot_chunk(rrow, e, qr[i], lo);
           }
         }
       } else {
-        for (int d = lane; d < D; d += 32) {
-          hi = fmaf(qs[d], static_cast<float>(vrow[d]), hi);
-          if (rrow != nullptr) lo = fmaf(qs[d], static_cast<float>(rrow[d]), lo);
-        }
+        hi = lane_row_dot<ElemI8, 0>(vrow, D, lane, qr, qs);
+        if (rrow != nullptr) lo = lane_row_dot<ElemI8, 0>(rrow, D, lane, qr, qs);
       }
       hi = warp_sum(hi);
       lo = warp_sum(lo);
       if (lane == 0) {
         // dequantise after the dot: <q, s*v8 + r*r8> = s<q,v8> + r<q,r8>
         float dot = hi * scales[slot];
-        if (rrow != nullptr) dot += lo * rscales[slot];
+        if (res != nullptr) dot += lo * rscales[slot];
         const float n2 = norms[slot];
         float d;
         if (metric == 0) {
@@ -166,41 +111,12 @@ __global__ void __launch_bounds__(kThreads) ivf_rerank_kernel(
   }
   __syncthreads();
 
-  const int pc = P * C;
-  for (int j = 0; j < k; ++j) {
-    float bd = INFINITY;
-    int bp = INT_MAX;
-    for (int i = tid; i < pc; i += kThreads) {
-      const float v = dist[i];
-      if (before(v, i, bd, bp)) {
-        bd = v;
-        bp = i;
-      }
-    }
-    warp_argmin(bd, bp);
-    if (lane == 0) {
-      red_d[warp] = bd;
-      red_p[warp] = bp;
-    }
-    __syncthreads();
-    if (warp == 0) {
-      bd = lane < kWarps ? red_d[lane] : INFINITY;
-      bp = lane < kWarps ? red_p[lane] : INT_MAX;
-      warp_argmin(bd, bp);
-      if (lane == 0) {
-        const int64_t o = static_cast<int64_t>(b) * k + j;
-        if (bd < kBig) {
-          out_d[o] = bd;
-          out_s[o] = static_cast<int64_t>(probes[static_cast<int64_t>(b) * P + bp / C]) * C
-                     + bp % C;
-          dist[bp] = INFINITY;  // taken
-        } else {
-          out_d[o] = INFINITY;
-          out_s[o] = -1;
-        }
-      }
-    }
-    __syncthreads();
+  block_select(dist, P * C, k, sel_d, sel_p);
+  for (int j = tid; j < k; j += kThreads) {
+    const int64_t o = static_cast<int64_t>(b) * k + j;
+    const int bp = sel_p[j];
+    out_d[o] = sel_d[j];
+    out_s[o] = bp < 0 ? -1 : static_cast<int64_t>(pb[bp / C]) * C + bp % C;
   }
 }
 
@@ -232,7 +148,8 @@ extern "C" int zt_ivf_rerank(const float* q, const int32_t* probes,
                              int B, int P, int C, int D, int k, int metric,
                              void* stream) {
   const size_t smem = sizeof(float) * (static_cast<size_t>(D) + static_cast<size_t>(P) * C);
-  const int nch = (D % 16 == 0 && D <= 2048) ? (D + 511) / 512 : 0;
+  int nch = lane_chunks<ElemI8>(vec, D, D);
+  if (res != nullptr && lane_chunks<ElemI8>(res, D, D) != nch) nch = 0;
   const dim3 grid(B);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define ZT_LAUNCH(N)                                                          \

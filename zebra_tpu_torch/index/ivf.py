@@ -323,13 +323,18 @@ def select_probes(state: IVFState, q32: torch.Tensor, P: int, sel_metric: str,
     return probes
 
 
-def _query_chunk_rows(state: IVFState, B: int, k: int, eager: bool) -> int:
+def _query_chunk_rows(state: IVFState, B: int, k: int, eager: bool, kk: int = 0) -> int:
     """Queries per pass, bounding the per-pass transients: the [B, K] score
-    pair (8 B/row/cluster) and, on the eager path, one probe's [B, C, D]
-    gather in f32 plus its residual. The JAX package hard-codes a budget for
-    a 16 GB TPU; here it is a quarter of the device's free memory
+    pair (8 B/row/cluster), under refine (``kk`` > k) the [B, kk, D] int8
+    residual gather and its f32 dot operand (3*kk*D bytes a row, the JAX
+    package's slack) and, on the eager path, one probe's [B, C, D] gather in
+    f32 plus its residual. The JAX package hard-codes a budget for a 16 GB
+    TPU; here it is a quarter of the device's free memory
     (``torch.cuda.mem_get_info``), or 1 GiB on the CPU."""
-    per_row = state.num_clusters * 8 + 64 * k
+    kk = max(kk, k)
+    per_row = state.num_clusters * 8 + 64 * kk
+    if kk != k:
+        per_row += 3 * kk * state.dim
     if eager:
         per_row += state.cluster_capacity * state.dim * 12
     dev = state.device
@@ -339,55 +344,67 @@ def _query_chunk_rows(state: IVFState, B: int, k: int, eager: bool) -> int:
 
 def query(state: IVFState, q: torch.Tensor, k: int, metric: str = "cosine",
           num_probes: int = 8, rerank: str = "eager", probe_sel: str = "auto",
-          refine_scan: bool = False, spare_used: bool | None = None):
+          refine_k: int = 0, refine_scan: bool = False, spare_used: bool | None = None):
     """Approximate top-k: score centroids -> top-P blocks -> exact re-rank ->
-    spare merge.
+    spare merge -> refine.
 
-    ``rerank="cuda"`` takes the probe kernel (:func:`ivf_rerank.ivf_rerank`)
-    for k <= 128; a wider k takes the eager block path and is counted in
-    :data:`EAGER_LARGE_K`. ``refine_scan`` scores the residual reconstruction
-    (the only residual mode the port has). ``spare_used`` is the caller's
-    host mirror of a non-empty spare (None: read ``counts[-1]``, a sync).
+    Residual-bearing states have two modes. ``refine_scan`` scores every
+    probed row against the int8 + residual reconstruction (and overrides
+    ``refine_k``). Otherwise the probe scan reads the coarse slab alone and
+    keeps ``refine_k`` (> k) candidates, which :func:`_refine_topk` re-scores
+    against the reconstruction down to ``k``.
+
+    ``rerank="cuda"`` takes the probe kernel (:func:`ivf_rerank.ivf_rerank`);
+    ``"cuda2"`` takes the one-slab wave kernel
+    (:func:`experimental_ivf.ivf_rerank_wave`), except in scan mode, which
+    it has no form for and which falls to the probe kernel. Either needs the
+    scanned width (``refine_k`` or k) <= 128; a wider one takes the eager
+    block path and is counted in :data:`EAGER_LARGE_K`. ``spare_used`` is the
+    caller's host mirror of a non-empty spare (None: read ``counts[-1]``, a
+    sync).
 
     Returns ``(dists [B, k], slots [B, k] int64, valid [B, k])``.
     """
     global EAGER_LARGE_K
     D.check_metric(metric)
-    if state.residual is not None and not refine_scan:
-        raise NotImplementedError(
-            "refine=N (the oversampled _refine_topk pass) is not ported yet; "
-            "use refine='scan' (ROADMAP.md queue 1)"
-        )
     B = q.shape[0]
     P = min(num_probes, state.num_clusters)
+    scan_res = refine_scan and state.residual is not None
+    if scan_res:
+        refine_k = 0
+    kk = refine_k if (state.residual is not None and refine_k > k) else k
     if spare_used is None:
         spare_used = bool(state.counts[-1] > 0)
-    use_kernel = rerank == "cuda" and k <= 128
-    if rerank == "cuda" and not use_kernel:
+    use_kernel = rerank in ("cuda", "cuda2") and kk <= 128
+    if rerank in ("cuda", "cuda2") and not use_kernel:
         EAGER_LARGE_K += 1
-    step = _query_chunk_rows(state, B, k, eager=not use_kernel)
+    step = _query_chunk_rows(state, B, k, eager=not use_kernel, kk=kk)
     outs = []
     for s in range(0, B, step):
         q32 = q[s : s + step].float()
         probes = select_probes(state, q32, P, metric, probe_sel)
-        if use_kernel:
+        if not use_kernel:
+            res = _block_rerank(state, q32, probes, kk, metric, scan_res)
+        elif rerank == "cuda2" and not scan_res:
+            from zebra_tpu_torch.ops.experimental_ivf import ivf_rerank_wave
+
+            res = ivf_rerank_wave(state, q32, probes, kk, metric)
+        else:
             from zebra_tpu_torch.ops.ivf_rerank import ivf_rerank
 
-            res = ivf_rerank(state, q32, probes, k, metric)
-        else:
-            res = _block_rerank(state, q32, probes, k, metric)
+            res = ivf_rerank(state, q32, probes, kk, metric, scan_residual=scan_res)
         if spare_used:
-            res = _merge_spare(state, q32, *res, k, metric)
-        outs.append(res)
+            res = _merge_spare(state, q32, *res, kk, metric, scan_res)
+        outs.append(_refine_topk(state, q32, *res, k, metric))
     if len(outs) == 1:
         return outs[0]
     return tuple(torch.cat(parts) for parts in zip(*outs))
 
 
-def _block_rerank(state: IVFState, q32, probes, k: int, metric: str):
+def _block_rerank(state: IVFState, q32, probes, k: int, metric: str, scan_res: bool):
     """Eager re-rank (the JAX package's XLA branch, ivf.py:700-768): per
     probe, gather the ``[B, C, D]`` block, take full-f32 dots (dequantised
-    after the dot, plus the residual term), select, merge."""
+    after the dot, plus the residual term in scan mode), select, merge."""
     B = q32.shape[0]
     C = state.cluster_capacity
     dev = q32.device
@@ -401,7 +418,7 @@ def _block_rerank(state: IVFState, q32, probes, k: int, metric: str):
         dots = torch.einsum("bd,bcd->bc", q32, state.vectors[rows].float())
         if state.scales is not None:
             dots = dots * state.scales[rows]
-        if state.residual is not None:
+        if scan_res:
             lo = torch.einsum("bd,bcd->bc", q32, state.residual[rows].float())
             dots = dots + state.rscales[rows] * lo
         d = D.mxu_from_parts(metric, dots, qn2, state.norms[rows])
@@ -410,9 +427,37 @@ def _block_rerank(state: IVFState, q32, probes, k: int, metric: str):
     return dk, ik, vk
 
 
-def _merge_spare(state: IVFState, q32, dk, ik, vk, k: int, metric: str):
+def _refine_topk(state: IVFState, q32, dk, ik, vk, k: int, metric: str):
+    """Exact re-rank of an oversampled candidate set on the residual pair
+    (the JAX package's ``_refine_topk``, ivf.py:771-817; MXU metrics).
+
+    With value = s*v8 + r*r8, ``dot(q, value) = s*dot(q, v8) + r*dot(q, r8)``.
+    The coarse term is recovered by INVERTING the coarse distance with
+    ``state.norms`` (every producer of ``dk`` built it from those norms), so
+    the pass is one ``[B, kk, D]`` int8 residual gather and one batched f32
+    dot. ``|q|^2`` here is the unrounded query's, also where the wave kernel
+    formed ``dk`` from the bf16-rounded one: the reference's behaviour, kept.
+    No-op without a residual or when the set is already k wide.
+    """
+    if state.residual is None or dk.shape[1] <= k:
+        return dk, ik, vk
+    idx = torch.where(vk, ik, torch.zeros_like(ik))
+    qn2 = (q32 * q32).sum(-1)[:, None]
+    n2 = state.norms[idx]  # refined |value|^2 (insert contract)
+    hi = D.mxu_invert_parts(metric, dk, qn2, n2)
+    lo = torch.einsum("bd,bkd->bk", q32, state.residual[idx].float())
+    d = D.mxu_from_parts(metric, hi + lo * state.rscales[idx], qn2, n2)
+    inf = torch.full_like(d, float("inf"))
+    return TK.masked_topk(torch.where(vk, d, inf), vk, ik, k)
+
+
+def _merge_spare(state: IVFState, q32, dk, ik, vk, k: int, metric: str,
+                 scan_res: bool = False):
     """Fold the shared spare region into partial top-k results (a windowed
-    exact scan of ``[spare_start, spare_start + G)``)."""
+    exact scan of ``[spare_start, spare_start + G)``). The residual is scored
+    only in scan mode; under refine=N the spare rows get the coarse distance
+    like every probed row (against ``state.norms`` either way) and
+    :func:`_refine_topk` fixes them up with the rest."""
     from zebra_tpu_torch.ops.scan import exact_scan
 
     G = state.spare_capacity
@@ -422,7 +467,8 @@ def _merge_spare(state: IVFState, q32, dk, ik, vk, k: int, metric: str):
         state.vectors, state.valid, q32, min(k, G), metric=metric, chunk=65536,
         scales=state.scales,
         norms=state.norms if state.residual is not None else None,
-        residual=state.residual, rscales=state.rscales,
+        residual=state.residual if scan_res else None,
+        rscales=state.rscales if scan_res else None,
         w_start=state.spare_start, w_len=G,
     )
     return TK.merge_topk(dk, ik, vk, td, ti, tv, k)

@@ -4,10 +4,12 @@ Sizing (the same formulas, so a database sizes identically in both
 packages), the cold build (train k-means on a coarse sample of the leading
 spans, then allocate, then insert), the host-quantised q8 wire, spare growth
 on overflow, the device query and the snapshot arrays. The port carries the
-refined-int8 tier only (int8 coarse slab + int8 residual streamed through the
-probe kernel, ``refine="scan"`` — the library default); the f32/bf16 tiers,
-``refine=N`` and the rebuild/compaction/retrain policy are not ported yet
-(ROADMAP.md queue 1).
+refined-int8 tier (int8 coarse slab + int8 residual) in both its query modes:
+``refine="scan"`` — the library default, the residual streamed through the
+probe kernel — and ``refine=N``, an oversampled scan of the coarse slab alone
+followed by the gather-refine pass (``ivf._refine_topk``). The f32/bf16 tiers,
+plain int8 (``refine=0``) and the rebuild/compaction/retrain policy are not
+ported yet (ROADMAP.md queue 1).
 """
 
 from __future__ import annotations
@@ -93,12 +95,25 @@ class IVFIndex(BaseVectorIndex):
                  metric_power: float = 3.0, device=None):
         super().__init__(dim, metric, options, metric_power, device)
         D.check_metric(metric)
-        if self.options.dtype != "int8" or self.options.resolved_refine() != "scan":
-            raise NotImplementedError(
-                f"the torch port carries the int8 + residual-scan tier only "
-                f"(dtype={self.options.dtype!r}, refine={self.options.refine!r}); "
-                "the f32/bf16 tiers and refine=N are ROADMAP.md queue 1"
+        r = self.options.refine
+        if not (r == "scan" or (isinstance(r, int) and r >= 0)):
+            raise ValueError(f"refine must be a non-negative int or 'scan', got {r!r}")
+        if self.options.refine_enabled() and self.options.dtype != "int8":
+            raise ValueError(
+                "refine stores an int8 quantisation residual and needs "
+                "dtype='int8' (f32/bf16 slabs have no residual to refine)"
             )
+        if not self.options.refine_enabled():
+            raise NotImplementedError(
+                f"the torch port carries the int8 + residual tiers only "
+                f"(dtype={self.options.dtype!r}, refine={r!r}); the f32/bf16 tiers "
+                "and plain int8 (refine=0) are ROADMAP.md queue 1, item 3"
+            )
+        # an explicit "pallas" / "pallas2" stores rows at the next multiple of
+        # 128 columns (the JAX package's DMA lane unit), zero-padded: kept so
+        # that snapshots of such a database open in either package
+        if self._given_rerank in ("pallas", "pallas2"):
+            self._dev_dim = -(-self.dim // 128) * 128
         self.state: V.IVFState | None = None
         #: host mirrors of slot occupancy (a non-empty spare costs no sync)
         self._used_slots = 0
@@ -113,7 +128,9 @@ class IVFIndex(BaseVectorIndex):
         gen = torch.Generator(device=self.device)
         gen.manual_seed(int(self._rng.integers(0, 2**31 - 1)))
         if data is None or data.shape[0] < 2:
-            return torch.randn((k, self.dim), generator=gen, device=self.device)
+            cents = torch.randn((k, self._dev_dim), generator=gen, device=self.device)
+            cents[:, self.dim :] = 0.0
+            return cents
         rows = data.shape[0]
         sample_n = min(rows, max(self.options.kmeans_sample, 4 * k))
         idx = None
@@ -122,7 +139,7 @@ class IVFIndex(BaseVectorIndex):
         if isinstance(data, torch.Tensor):
             sample = data if idx is None else data[torch.as_tensor(idx, device=data.device)]
         else:
-            host = np.asarray(data, np.float32)
+            host = self._pad_dim(np.asarray(data, np.float32))
             sample = torch.from_numpy(np.ascontiguousarray(
                 host if idx is None else host[idx])).to(self.device)
         # the [chunk, K] distance tile stays ~1 GB
@@ -137,7 +154,7 @@ class IVFIndex(BaseVectorIndex):
         k = resolved_clusters(self.options, n_hint)
         cents = self._train_centroids(k, data)
         return V.empty_state(
-            cents, resolved_capacity(self.options, n_hint, k, dim=self.dim),
+            cents, resolved_capacity(self.options, n_hint, k, dim=self._dev_dim),
             resolved_spare(self.options, n_hint), dtype=torch.int8, refine=True,
         )
 
@@ -165,7 +182,7 @@ class IVFIndex(BaseVectorIndex):
         cents = self._train_centroids(k, sample)
         del sample
         self.state = V.empty_state(
-            cents, resolved_capacity(self.options, n, k, dim=self.dim),
+            cents, resolved_capacity(self.options, n, k, dim=self._dev_dim),
             resolved_spare(self.options, n), dtype=torch.int8, refine=True,
         )
         self._insert_batches(vectors, ids, staged=staged)
@@ -184,8 +201,17 @@ class IVFIndex(BaseVectorIndex):
             parts = V.quantise_pair_host(np.asarray(vectors[start : start + count], np.float32))
         if self._wal_cb is not None:
             self._wal_cb(span, parts)
+        return self._ship_quant(parts)
+
+    def _ship_quant(self, parts):
+        """Host-quantised ``(v8, r8, scale, rscale)`` as device tensors
+        ``(v8, r8, [scale, rscale])``, the codes zero-padded to the stored
+        width (the WAL record holds them unpadded)."""
         v8, r8, sc, rs = parts
         qs = np.stack([sc, rs], axis=1).astype(np.float32)
+        pad = self._dev_dim - v8.shape[1]
+        if pad:
+            v8, r8 = (np.pad(a, ((0, 0), (0, pad))) for a in (v8, r8))
         return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
                      for a in (v8, r8, qs))
 
@@ -205,10 +231,7 @@ class IVFIndex(BaseVectorIndex):
             logger.info("ivf: %d vectors overflow into a grown spare (%d -> %d rows)",
                         len(pending), self.state.spare_capacity, 2 * self.state.spare_capacity)
             self.state = V.grow_spare(self.state)
-            v8, r8, sc, rs = V.quantise_pair_host(rows[pending])
-            batch = tuple(torch.from_numpy(a).to(self.device)
-                          for a in (v8, r8, np.stack([sc, rs], axis=1)))
-            slots = self._insert_batch_dev(batch)
+            slots = self._insert_batch_dev(self._ship_quant(V.quantise_pair_host(rows[pending])))
             out[pending] = slots
             pending = pending[slots < 0]
             if not len(pending):
@@ -235,13 +258,15 @@ class IVFIndex(BaseVectorIndex):
         """Device search. ``exact`` scans the whole slab (always full f32:
         ``exact_precision`` and ``approx_topk`` only ever trade accuracy away
         on the JAX package)."""
+        if self._dev_dim != self.dim:
+            q = torch.nn.functional.pad(q, (0, self._dev_dim - self.dim))
         if exact:
             return V.brute_force(self.state, q, k, metric=self.metric)
         return V.query(
             self.state, q, k, metric=self.metric,
             num_probes=self.options.resolved_probes(), rerank=self.options.rerank,
-            probe_sel=self.options.probe_sel, refine_scan=True,
-            spare_used=self._spare_used > 0,
+            probe_sel=self.options.probe_sel, refine_k=self.options.refine_k(k),
+            refine_scan=self.options.refine_is_scan(), spare_used=self._spare_used > 0,
         )
 
     # -- persistence ---------------------------------------------------------------------

@@ -3,14 +3,16 @@
 Each ``csrc/<name>.cu`` exposes a plain C entry point and is compiled by
 ``nvcc`` into ``zebra_tpu_torch/_build/<name>-<hash>.so`` at first use, then
 loaded with ``ctypes`` (no PyTorch headers, so a build takes seconds). The
-file name carries a hash of the source, so an edited kernel rebuilds; two
-sources build at once when loaded from two threads. Nothing
+file name carries a hash of the source and of every shared header
+``csrc/*.cuh``, so an edited kernel or header rebuilds; two sources build at
+once when loaded from two threads. Nothing
 here runs at import time: the CPU-only test machines import every module.
 """
 
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -46,14 +48,17 @@ def load(name: str) -> ctypes.CDLL:
         if name in _libs:
             return _libs[name]
         src = os.path.join(CSRC, f"{name}.cu")
-        with open(src, "rb") as f:
-            digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+        h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+        for path in [src, *sorted(glob.glob(os.path.join(CSRC, "*.cuh")))]:
+            with open(path, "rb") as f:
+                h.update(f.read())
+        digest = h.hexdigest()[:16]
         out = os.path.join(BUILD_DIR, f"{name}-{digest}.so")
         if not os.path.exists(out):
             os.makedirs(BUILD_DIR, exist_ok=True)
             tmp = f"{out}.tmp.{os.getpid()}"
             proc = subprocess.run(
-                [_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
+                [_nvcc(), *NVCC_FLAGS, "-I", CSRC, "-o", tmp, src],
                 capture_output=True, text=True, check=False,
             )
             BUILD_LOG[name] = proc.stdout + proc.stderr

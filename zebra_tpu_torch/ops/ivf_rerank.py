@@ -33,7 +33,7 @@ MAX_K = 128
 #: dynamic shared memory one block may use on sm_90 (227 KB)
 MAX_SMEM = 232448
 _METRIC_CODE = {"cosine": 0, "l2": 1, "sql2": 2}
-#: queries per chunk of the plain version (~0.8 GB of f32 gather at P=2,
+#: most queries per chunk of a plain version (~0.8 GB of f32 gather at P=2,
 #: C=128, D=768)
 _REF_QCHUNK = 1024
 
@@ -48,11 +48,61 @@ def _split_bf16(x32: torch.Tensor):
     return hi, lo
 
 
+def ref_chunk(P: int, C: int, D: int) -> int:
+    """Queries per pass of a plain version: one ``[b, P*C, D]`` f32 gather
+    stays near 1 GiB."""
+    return max(1, min(_REF_QCHUNK, (1 << 28) // max(P * C * D, 1)))
+
+
+def probe_rows(pr: torch.Tensor, C: int) -> torch.Tensor:
+    """Slab rows ``[b, P*C]`` of the probed blocks ``pr [b, P]``, in the
+    flattened probe-axis order the kernels select over."""
+    col = torch.arange(C, device=pr.device)
+    return (pr[:, :, None] * C + col).reshape(pr.shape[0], -1)
+
+
+def select_slots(d: torch.Tensor, pr: torch.Tensor, C: int, kk: int):
+    """The ``kk`` smallest of ``d [b, P*C]`` (ties to the lowest position)
+    as ``(dists, slots)``; entries at or above :data:`BIG` are missing
+    (+inf, -1)."""
+    vals, pos = TK.smallest_k(d, kk)
+    ok = vals < BIG
+    slot = torch.gather(pr, 1, pos // C) * C + pos % C
+    return (torch.where(ok, vals, torch.full_like(vals, float("inf"))),
+            torch.where(ok, slot, torch.full_like(slot, -1)))
+
+
+def collect(out_d, out_s, B: int, k: int, kk: int, dev):
+    """Per-chunk results joined into ``(dists, slots, valid) [B, k]``; with
+    fewer candidates than k (``kk < k``) the tail is padded as missing."""
+    dk = torch.cat(out_d) if out_d else torch.zeros((0, kk), device=dev)
+    sk = torch.cat(out_s) if out_s else torch.zeros((0, kk), dtype=torch.int64, device=dev)
+    if kk < k:
+        dk = torch.cat([dk, torch.full((B, k - kk), float("inf"), device=dev)], 1)
+        sk = torch.cat([sk, torch.full((B, k - kk), -1, dtype=torch.int64, device=dev)], 1)
+    return dk, sk, sk >= 0
+
+
+def distance_from_parts(metric: str, dot, qn2, n2):
+    """The kernels' distance from ``dot``, ``|q|^2`` and the stored ``|x|^2``
+    (``pallas_ivf.py:410-416``, ``experimental_ivf.py:134-140``): the rsqrt form of cosine, pinned to 1 on a
+    zero norm."""
+    if metric == "cosine":
+        d = 1.0 - dot * torch.rsqrt(torch.clamp(qn2 * n2, min=1e-30))
+        return torch.where(n2 * qn2 > 0, d, torch.ones_like(d))
+    d2 = torch.clamp(qn2 + n2 - 2.0 * dot, min=0.0)
+    return torch.sqrt(d2) if metric == "l2" else d2
+
+
 def ivf_rerank_reference(state, q32: torch.Tensor, probes: torch.Tensor, k: int,
-                         metric: str = "cosine", dots: str = "highest"):
-    """Plain torch re-rank of the probed blocks (in chunks of
-    :data:`_REF_QCHUNK` queries, so a large batch never materialises its
-    whole ``[B, P*C, D]`` gather).
+                         metric: str = "cosine", dots: str = "highest",
+                         scan_residual: bool = True):
+    """Plain torch re-rank of the probed blocks (in chunks of queries, so a
+    large batch never materialises its whole ``[B, P*C, D]`` gather).
+
+    ``scan_residual``: score the int8 + residual reconstruction when the
+    state has a residual slab; False scores the coarse slab alone (the
+    oversampled scan of refine=N).
 
     ``dots``: "highest" = f32 dots; "bf16x2f" = the Pallas kernel's default
     for reduced slabs — the coarse dot takes the split query ``q_hi + q_lo``
@@ -63,13 +113,13 @@ def ivf_rerank_reference(state, q32: torch.Tensor, probes: torch.Tensor, k: int,
     C = state.cluster_capacity
     B, P = probes.shape
     dev = q32.device
-    col = torch.arange(C, device=dev)
     kk = min(k, P * C)
+    step = ref_chunk(P, C, state.dim)
     out_d, out_s = [], []
-    for s in range(0, B, _REF_QCHUNK):
-        pr = probes[s : s + _REF_QCHUNK].long()
-        qq = q32[s : s + _REF_QCHUNK].float()
-        rows = (pr[:, :, None] * C + col).reshape(pr.shape[0], P * C)
+    for s in range(0, B, step):
+        pr = probes[s : s + step].long()
+        qq = q32[s : s + step].float()
+        rows = probe_rows(pr, C)
         qa, qb = (qq, None) if dots == "highest" else _split_bf16(qq)
 
         def bdot(slab):
@@ -84,36 +134,37 @@ def ivf_rerank_reference(state, q32: torch.Tensor, probes: torch.Tensor, k: int,
         dot = hi
         if state.scales is not None:
             dot = hi * state.scales[rows]
-        if state.residual is not None:
+        if scan_residual and state.residual is not None:
             lo, _ = bdot(state.residual)
             dot = dot + lo * state.rscales[rows]
-        n2 = state.norms[rows]
         qn2 = (qq * qq).sum(-1, keepdim=True)
-        if metric == "cosine":
-            d = 1.0 - dot * torch.rsqrt(torch.clamp(qn2 * n2, min=1e-30))
-            d = torch.where(n2 * qn2 > 0, d, torch.ones_like(d))
-        else:
-            d2 = torch.clamp(qn2 + n2 - 2.0 * dot, min=0.0)
-            d = torch.sqrt(d2) if metric == "l2" else d2
+        d = distance_from_parts(metric, dot, qn2, state.norms[rows])
         d = torch.where(state.valid[rows], d, torch.full_like(d, BIG))
-        vals, pos = TK.smallest_k(d, kk)
-        ok = vals < BIG
-        slot = torch.gather(pr, 1, pos // C) * C + pos % C
-        out_d.append(torch.where(ok, vals, torch.full_like(vals, float("inf"))))
-        out_s.append(torch.where(ok, slot, torch.full_like(slot, -1)))
-    dk = torch.cat(out_d) if out_d else torch.zeros((0, kk), device=dev)
-    sk = torch.cat(out_s) if out_s else torch.zeros((0, kk), dtype=torch.int64, device=dev)
-    if kk < k:  # fewer candidates than k: pad the tail as missing
-        dk = torch.cat([dk, torch.full((B, k - kk), float("inf"), device=dev)], 1)
-        sk = torch.cat([sk, torch.full((B, k - kk), -1, dtype=torch.int64, device=dev)], 1)
-    return dk, sk, sk >= 0
+        dk, sk = select_slots(d, pr, C, kk)
+        out_d.append(dk)
+        out_s.append(sk)
+    return collect(out_d, out_s, B, k, kk, dev)
+
+
+def check_launch(k: int, P: int, C: int, width: int) -> None:
+    """Raise unless a probe re-rank kernel can take ``k`` and hold one query
+    of ``width`` floats plus its ``P*C`` distances in shared memory."""
+    if not 0 < k <= MAX_K:
+        raise ValueError(f"the CUDA re-rank takes 0 < k <= {MAX_K}, got {k}")
+    smem = 4 * (-(-width // 4) * 4 + P * C)
+    if smem > MAX_SMEM:
+        raise ValueError(
+            f"P*C={P * C} candidates and a row width of {width} need {smem} bytes of "
+            f"shared memory per block; at most {MAX_SMEM} fit"
+        )
 
 
 def _ptr(t: torch.Tensor | None):
     return ctypes.c_void_p(t.data_ptr() if t is not None else 0)
 
 
-def _launch(state, q32: torch.Tensor, probes: torch.Tensor, k: int, metric: str):
+def _launch(state, q32: torch.Tensor, probes: torch.Tensor, k: int, metric: str,
+            scan_residual: bool = True):
     """Launch ``csrc/ivf_rerank.cu`` on the current stream (raises on any
     input the kernel does not take, and when the launch fails)."""
     global LAUNCHES
@@ -126,21 +177,14 @@ def _launch(state, q32: torch.Tensor, probes: torch.Tensor, k: int, metric: str)
         )
     if metric not in _METRIC_CODE:
         raise ValueError(f"the CUDA re-rank takes {tuple(_METRIC_CODE)}, got {metric!r}")
-    if not 0 < k <= MAX_K:
-        raise ValueError(f"the CUDA re-rank takes 0 < k <= {MAX_K}, got {k}")
     B, P = probes.shape
     C, D = state.cluster_capacity, state.dim
     if tuple(q32.shape) != (B, D):
         raise ValueError(f"queries must be [{B}, {D}] for probes {tuple(probes.shape)}, "
                          f"got {tuple(q32.shape)}")
-    smem = 4 * (D + P * C)
-    if smem > MAX_SMEM:
-        raise ValueError(
-            f"P*C={P * C} candidates and D={D} need {smem} bytes of shared "
-            f"memory per block; at most {MAX_SMEM} fit"
-        )
+    check_launch(k, P, C, D)
     dev = q32.device
-    res = state.residual
+    res = state.residual if scan_residual else None
     tensors = [state.vectors, state.scales, state.norms, state.valid, state.counts]
     if res is not None:
         tensors += [res, state.rscales]
@@ -173,14 +217,15 @@ def _launch(state, q32: torch.Tensor, probes: torch.Tensor, k: int, metric: str)
 
 
 def ivf_rerank(state, q32: torch.Tensor, probes: torch.Tensor, k: int,
-               metric: str = "cosine"):
+               metric: str = "cosine", scan_residual: bool = True):
     """Top-k of each query over its probed cluster blocks.
 
-    Scores the full reconstruction when the state carries a residual slab
-    (``refine="scan"``). Returns ``(dists [B, k], slots [B, k], valid [B, k])``.
-    CPU tensors take :func:`ivf_rerank_reference`; CUDA tensors launch the
-    kernel or raise.
+    ``scan_residual`` (``refine="scan"``) scores the full reconstruction when
+    the state carries a residual slab; False scores the coarse slab alone.
+    Returns ``(dists [B, k], slots [B, k], valid [B, k])``. CPU tensors take
+    :func:`ivf_rerank_reference`; CUDA tensors launch the kernel or raise.
     """
     if q32.is_cuda:
-        return _launch(state, q32, probes, k, metric)
-    return ivf_rerank_reference(state, q32, probes, k, metric, dots="highest")
+        return _launch(state, q32, probes, k, metric, scan_residual)
+    return ivf_rerank_reference(state, q32, probes, k, metric, dots="highest",
+                                scan_residual=scan_residual)

@@ -1,0 +1,76 @@
+"""Time the probe re-rank kernel, one IVF device query and the LSH re-rank
+kernel of ONE checkout, for comparing two checkouts on one card.
+
+Run it from the root of each checkout in turn, within one job on one
+card (parent, change, change, parent), and read the lines side by side:
+
+    python zebra_tpu_torch/tools/ab_kernels.py LABEL
+
+It uses the checkout's own ``chip_smoke.py`` for the synthetic IVF state (the
+main path's sizing: K=16384, C=128, D=768, int8 + residual, 45% live) and for
+the synthetic LSH candidates (a 2M x 768 slab, B=16384, M=3000 and 65,536).
+Times are CUDA-event means; the host-to-host figure is a host clock around
+``search_arrays`` (host arrays in and out).
+"""
+
+import os
+import sys
+import time
+
+sys.path.insert(0, os.getcwd())
+
+
+def main(label: str) -> int:
+    import torch
+
+    import chip_smoke as cs
+    from zebra_tpu_torch.index import ivf as V
+    from zebra_tpu_torch.index.ivf_host import IVFIndex
+    from zebra_tpu_torch.ops import ivf_rerank as R
+    from zebra_tpu_torch.ops import lsh_rerank as LR
+
+    if not torch.cuda.is_available():
+        print("ab_kernels: needs a CUDA card", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda", 0)
+    B = 16384
+    st = cs.synthetic_state(torch, V, dev)
+    g = torch.Generator(device=dev).manual_seed(1)
+    q = torch.randn((B, st.dim), generator=g, device=dev)
+    pt = cs.synthetic_probes(torch, dev, B, st.num_clusters, 3)
+    ks = [cs.time_ms(torch, lambda: R.ivf_rerank(st, q, pt, 10, "cosine"), 50) for _ in range(3)]
+    idx = IVFIndex(dim=st.dim, device=dev)
+    idx.state = st
+    qn = q.cpu().numpy()
+    idx.search_arrays(qn, 10)  # warm
+    hs = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        idx.search_arrays(qn, 10)
+        hs.append((time.perf_counter() - t0) * 1e3)
+    dq = cs.time_ms(torch, lambda: idx._query_device(q, 10, exact=False), 10)
+    print(f"{label}: ivf_rerank {' '.join(f'{k:.3f}' for k in ks)} ms; device query "
+          f"{dq:.3f} ms; search_arrays host-to-host {' '.join(f'{h:.1f}' for h in hs)} ms",
+          flush=True)
+    del st, idx, q, pt
+    torch.cuda.empty_cache()
+
+    S, D = 2 * 1024 * 1024, 768
+    g = torch.Generator(device=dev).manual_seed(4)
+    slab = torch.randn((S, D), generator=g, device=dev)
+    q = torch.randn((B, D), generator=g, device=dev)
+    out = []
+    for M in (3000, 65536):
+        cand, valid = cs.lsh_candidates(torch, dev, S, B, M, M)
+        norms = (slab ** 2).sum(-1)[torch.clamp(cand, 0, S - 1).long()]
+        for vec in (slab, slab.to(torch.bfloat16)):
+            ms = [cs.time_ms(torch, lambda: LR.lsh_rerank(vec, q, cand, norms, valid, k=10), 5)
+                  for _ in range(2)]
+            out.append(f"M={M} {str(vec.dtype)[6:]} " + "/".join(f"{m:.3f}" for m in ms))
+        del cand, valid, norms
+    print(f"{label}: lsh_rerank " + "; ".join(out) + " ms", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1] if len(sys.argv) > 1 else "tree"))

@@ -13,6 +13,25 @@ def next_pow2(n: int) -> int:
     return 1 << (n - 1).bit_length()
 
 
+def make_data(n: int, dim: int, seed: int = 0, n_clusters: int | None = None):
+    """Clustered Gaussians ``[n, dim]`` f32, the data regime ANN recall
+    targets describe: ``max(64, n // 100)`` centres, sigma 0.15. The same
+    bytes as the JAX package's ``bench.make_data`` for the same arguments
+    (one numpy generator, the same draws in the same order)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    n_clusters = n_clusters or max(64, n // 100)
+    centers = rng.standard_normal((n_clusters, dim)).astype(np.float32)
+    out = np.empty((n, dim), dtype=np.float32)
+    step = 200_000
+    for s in range(0, n, step):
+        e = min(n, s + step)
+        assign = rng.integers(0, n_clusters, e - s)
+        out[s:e] = centers[assign] + 0.15 * rng.standard_normal((e - s, dim)).astype(np.float32)
+    return out
+
+
 def device_sync() -> None:
     """Wait for every queued kernel on the current CUDA device (no-op
     without CUDA). Timing code calls it before reading a host clock."""
