@@ -7,8 +7,8 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
 
 1. the card (``nvidia-smi`` name and power limit); CUDA must be available
    and TF32 off;
-2. build the four kernels from ``zebra_tpu_torch/csrc`` (one ``nvcc`` per
-   source, all started together);
+2. build the five kernel sources from ``zebra_tpu_torch/csrc`` (one ``nvcc``
+   per source, all started together);
 3. IVF kernel parity at its main path's shapes (D=768, C=128, P=2, k=10 and
    k=128, B=1024; ragged counts, tombstones, an all-invalid probe) against
    the plain torch version, and both timed at B=16384;
@@ -19,16 +19,23 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
 5. LSH kernel parity (D=768, B=1024, candidate widths 3000 and 65,536, k=10
    and k=128, three metrics, f32 and bf16 slabs; -1 pads, masked duplicates,
    an all-invalid query, a zero-norm row) against the plain torch version,
-   and both timed at B=16384 at both widths;
+   and both timed at B=16384 at both widths (the gather form); then a sorted
+   dense case for the slab-major form (B=1024, each query holding ~20% of
+   1M occupied rows, compacted rows with -1 pads, a masked duplicate, a dead
+   entry, the zero-norm row, an all-invalid query): slab form against the
+   plain version, every differing rank held to an f64-verified tie, and both
+   forms timed, on the f32 slab and on its bf16 copy;
 6. the LSH path at its library defaults: ``DatabaseConfig(dim=768,
    index=IndexOptions(index_type="lsh"))``, ``insert_vectors`` of the same 1M
    rows, ``query`` in batches of 1024, recall@10 against the exact scan,
    self-retrieval, ``remove``, ``save`` and reopen, ``search_arrays`` at
-   batch 16384, the kernel's launch count over it; then, on the path's own
-   candidates of 1024 held-out queries (deep buckets are compacted
-   losslessly, see ``index/lsh.py``), the kernel against its plain version
-   at k=10 and k=128, both timed, the stages of one device query timed by
-   CUDA events, and the LSH search beside the exact scan;
+   batch 16384, the kernel's launch count over it, all of the slab-major
+   form; then, on the path's own candidates of 1024 held-out queries (deep
+   buckets are compacted losslessly, see ``index/lsh.py``), both forms of
+   the kernel against the plain version at k=10 and k=128, the forms timed
+   in turns (gather, slab, slab, gather) beside the plain version and the
+   bound, the stages of one device query timed by CUDA events, and the LSH
+   search beside the exact scan;
 7. one-slab wave kernel parity on the synthetic state of phase 3 (int8 with
    scales, bf16 and f32 slabs, three metrics, k=10/40/128, P=4 and an odd
    P=3, B=1024) against the plain torch version, and both timed at B=16384,
@@ -82,6 +89,9 @@ MIN_RECALL = 0.95
 HBM_BYTES_S = 3.35e12
 PEAK_F32 = 67e12
 PEAK_BF16 = 989e12
+#: rows the dense synthetic LSH case holds per query, of its occupied rows
+DENSE_OCCUPIED = 1_000_000
+DENSE_SHARE = 0.2
 #: LSH guards, not targets: a broken bucket scatter measured 0.48 on the TPU
 MIN_LSH_RECALL = 0.85
 MIN_LSH_SELF = 0.99
@@ -509,6 +519,87 @@ def lsh_candidates(torch, device, S, B, M, seed):
     return cand.contiguous(), valid.float().contiguous()
 
 
+def lsh_dense_candidates(torch, device, slab, B, occupied, share, seed):
+    """Sorted dense LSH candidates in the compacted layout: each query holds
+    ~``share`` of the slab's first ``occupied`` rows, ascending, then -1 pads
+    to a common width (a multiple of 1024). Query 0 has nothing valid; query
+    1 holds slot 7 (a zero row); in every other row the third entry is dead
+    (masked) and the sixth is a masked copy of the seventh. Returns ``(cand
+    int32, norms f32, valid f32)`` ``[B, M]``."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    rows, width = [], 0
+    for s in range(0, B, 128):
+        hold = torch.rand((min(128, B - s), occupied), generator=g, device=device) < share
+        if s == 0:
+            hold[1, 7] = True
+        rank = torch.cumsum(hold, dim=1) - 1
+        n = int(rank[:, -1].max()) + 1
+        out = torch.full((hold.shape[0], n + 1), -1, dtype=torch.int32, device=device)
+        col = torch.arange(occupied, dtype=torch.int32, device=device).expand_as(hold)
+        out.scatter_(1, torch.where(hold, rank, torch.full_like(rank, n)),
+                     torch.where(hold, col, torch.full_like(col, -1)))
+        rows.append(out[:, :n])
+        width = max(width, n)
+        del hold, rank, col, out
+    M = -(-width // 1024) * 1024
+    cand = torch.full((B, M), -1, dtype=torch.int32, device=device)
+    for i, r in enumerate(rows):
+        cand[128 * i : 128 * i + r.shape[0], : r.shape[1]] = r
+    del rows
+    valid = cand >= 0
+    valid[2:, 2] = False  # a dead row
+    cand[2:, 5] = cand[2:, 6]  # a masked duplicate before its valid twin
+    valid[2:, 5] = False
+    valid[0] = False
+    norms = (slab.float() ** 2).sum(-1)[torch.clamp(cand, 0, slab.shape[0] - 1).long()]
+    return cand.contiguous(), norms.contiguous(), valid.float().contiguous()
+
+
+def lsh_dense_parity(torch, LR, device, slab, q, B=1024):
+    """Phase 5, the slab-major form: against the plain version on the sorted
+    dense case (f32 slab, then its bf16 copy), and both forms timed on it."""
+    cand, norms32, valid = lsh_dense_candidates(torch, device, slab, B, DENSE_OCCUPIED,
+                                                DENSE_SHARE, SEED + 9)
+    slab_kw = dict(sorted_slots=True, occupied=DENSE_OCCUPIED)
+    worst_err = 0.0
+    for dtype, cases in ((torch.float32, (("cosine", 10), ("l2", 10), ("sql2", 10),
+                                          ("cosine", 128))),
+                         (torch.bfloat16, (("cosine", 10), ("sql2", 128)))):
+        name = str(dtype)[6:]
+        vec = slab if dtype == torch.float32 else slab.to(dtype)
+        norms = norms32 if dtype == torch.float32 else (
+            (vec.float() ** 2).sum(-1)[torch.clamp(cand, 0, vec.shape[0] - 1).long()])
+        args = (vec, q[:B], cand, norms, valid)
+        check(LR.takes_slab_form(True, dtype, 10, cand.shape[1], DENSE_OCCUPIED),
+              "the dense case must take the slab-major form")
+        slab0 = LR.LAUNCHES_SLAB
+        for metric, k in cases:
+            gd, gp = LR.lsh_rerank(*args, metric=metric, k=k, **slab_kw)
+            wd, wp = LR.lsh_rerank_reference(*args, metric=metric, k=k)
+            agree, err = compare(torch, (gd, gp, gp >= 0), (wd, wp, wp >= 0))
+            swaps, gap = tie_gap(torch, gp, wp, lsh_d64(torch, vec, q[:B], cand, norms, metric))
+            check(not bool((gp[0] >= 0).any()), "query 0 has no valid candidate")
+            print(f"parity: lsh_rerank slab form, sorted dense M={cand.shape[1]} {name} slab "
+                  f"{metric} k={k} B={B}: position agreement {agree:.6f}, max abs err {err:.3g}; "
+                  f"{swaps} differing ranks, all ties (largest f64 gap {gap:.3g} <= {TIE_TOL})")
+            worst_err = max(worst_err, err)
+        check(LR.LAUNCHES_SLAB == slab0 + len(cases),
+              "the dense case did not launch the slab-major form")
+        gather = time_ms(torch, lambda: LR.lsh_rerank(*args, k=10), 2)
+        slab_ms = time_ms(torch, lambda: LR.lsh_rerank(*args, k=10, **slab_kw), 5)
+        slab128 = time_ms(torch, lambda: LR.lsh_rerank(*args, k=128, **slab_kw), 3)
+        n_valid = float(valid.sum())
+        bound, by = bound_ms(
+            cand.numel() * 4 + n_valid * 8 + DENSE_OCCUPIED * vec.shape[1] * vec.element_size()
+            + B * (q.shape[1] * 4 + 80), n_valid * 2 * q.shape[1], PEAK_F32)
+        print(f"timing: lsh_rerank sorted dense B={B} M={cand.shape[1]} "
+              f"({n_valid / B:.0f} valid per query of {DENSE_OCCUPIED} occupied rows) {name} "
+              f"k=10: slab form {slab_ms:.3f} ms (k=128: {slab128:.3f} ms), gather form "
+              f"{gather:.3f} ms; bound {bound:.3f} ms by {by} (f32 rate)")
+        del vec, norms, args
+    return worst_err
+
+
 def lsh_kernel_parity(torch, LR, device, S=2 * 1024 * 1024, D=DIM, B=1024, B_time=N_QUERIES):
     """Phase 5: kernel 4 against its plain version on a slab of the main
     path's size (2M x 768; slot 7 a zero row), at both candidate widths."""
@@ -517,6 +608,7 @@ def lsh_kernel_parity(torch, LR, device, S=2 * 1024 * 1024, D=DIM, B=1024, B_tim
     slab[7] = 0.0
     q = torch.randn((B_time, D), generator=g, device=device)
     worst_agree, worst_err, times = 1.0, 0.0, {}
+    slab_launches = LR.LAUNCHES_SLAB
     for M in (3000, 65536):
         cand, valid = lsh_candidates(torch, device, S, B_time, M, SEED + M)
         idx = torch.clamp(cand, 0, S - 1).long()
@@ -549,6 +641,10 @@ def lsh_kernel_parity(torch, LR, device, S=2 * 1024 * 1024, D=DIM, B=1024, B_tim
                 times[M] = (ms, plain_ms)
             del vec, norms, args
         del cand, valid, idx
+    check(LR.LAUNCHES_SLAB == slab_launches,
+          "the synthetic M=3000 / M=65,536 cases must take the gather form")
+    torch.cuda.empty_cache()
+    worst_err = max(worst_err, lsh_dense_parity(torch, LR, device, slab, q))
     del slab, q
     torch.cuda.empty_cache()
     return {"max_abs_err": worst_err, "times": times}
@@ -556,16 +652,17 @@ def lsh_kernel_parity(torch, LR, device, S=2 * 1024 * 1024, D=DIM, B=1024, B_tim
 
 def lsh_path(torch, zt, TB, LR, tmp, base, queries):
     """Phase 6: the LSH library defaults through the facade. Returns the
-    kernel launch count of the run, and the kernel's max abs error against
-    its plain version, both times and its bound on the path's own candidates
-    of 1024 held-out queries."""
+    kernel launch count of the run and the slab-major form's share of it,
+    and, on the path's own candidates of 1024 held-out queries, the kernel's
+    max abs error against its plain version, both forms' times, the plain
+    version's and the bound."""
     import numpy as np
     from zebra_tpu_torch.utils import device_sync
 
     (n, dim), n_queries = base.shape, queries.shape[0]
     path = os.path.join(tmp, "lsh.zebra")
     cfg = zt.DatabaseConfig(dim=dim, index=zt.IndexOptions(index_type="lsh"))
-    LR.LAUNCHES = 0
+    LR.LAUNCHES = LR.LAUNCHES_SLAB = 0
     TB.EAGER_LARGE_K = 0
     t0 = time.perf_counter()
     db = zt.Database.create(path, cfg)
@@ -655,10 +752,11 @@ def lsh_path(torch, zt, TB, LR, tmp, base, queries):
     dev_qps = 3 * n_queries / (time.perf_counter() - t0)
     print(f"lsh query: batch {n_queries}: {dev_qps:.0f} QPS (index.search_arrays, "
           f"device synchronised)")
-    launches, large_k = LR.LAUNCHES, TB.EAGER_LARGE_K
-    print(f"launches: lsh_rerank {launches} over the LSH path; eager large-k "
-          f"fallbacks {large_k}")
+    launches, slab_launches, large_k = LR.LAUNCHES, LR.LAUNCHES_SLAB, TB.EAGER_LARGE_K
+    print(f"launches: lsh_rerank {launches} over the LSH path, {slab_launches} of them the "
+          f"slab-major form; eager large-k fallbacks {large_k}")
     check(launches > 0 and large_k == 0, "the LSH path must run through lsh_rerank")
+    check(slab_launches == launches, "the LSH path at 1M x 768 must take the slab-major form")
 
     # the path's own candidates of the 1024 held-out queries (these launches
     # come after the count was read): the kernel against its plain version,
@@ -675,22 +773,50 @@ def lsh_path(torch, zt, TB, LR, tmp, base, queries):
 
     c, norms, valid = prepare()
     args = (state.vectors, qt, c, norms, valid)
+    slab_kw = dict(sorted_slots=True, occupied=idx._next_slot)
+    check(LR.takes_slab_form(True, state.vectors.dtype, 10, c.shape[1], idx._next_slot),
+          "the path's candidates must take the slab-major form")
     # clustered data: hundreds of candidates sit at nearly one distance, so
     # f32 summation order swaps some of them; every differing rank must be
     # such a tie
-    worst_err = 0.0
+    worst_err, recalls, ties = 0.0, {}, {}
+    _, oracle, _ = TB.brute_force(state, qt, 10, metric=idx.metric)
+
+    def recall_of(pos):  # of the slots behind candidate positions, against the exact scan
+        slots = torch.gather(c, 1, pos.clamp(min=0)).long()
+        return float((slots[:, :, None] == oracle[:, None, :]).any(-1).float().mean())
+
     for k in (10, 128):
-        gd, gp = LR.lsh_rerank(*args, metric=idx.metric, k=k)
         wd, wp = LR.lsh_rerank_reference(*args, metric=idx.metric, k=k)
-        agree, err = compare(torch, (gd, gp, gp >= 0), (wd, wp, wp >= 0))
-        swaps, gap = tie_gap(torch, gp, wp,
-                             lsh_d64(torch, state.vectors, qt, c, norms, idx.metric))
-        print(f"parity: lsh_rerank on the path's candidates, k={k}: position agreement "
-              f"{agree:.6f}, max abs err {err:.3g}, valid results {int((gp >= 0).sum())}; "
-              f"{swaps} differing ranks, all ties (largest f64 gap {gap:.3g} <= {TIE_TOL})")
-        worst_err = max(worst_err, err)
-        del gd, gp, wd, wp
-    ms = time_ms(torch, lambda: LR.lsh_rerank(*args, k=10), 5)
+        if k == 10:
+            recalls["plain"] = recall_of(wp)
+        for form, kw in (("slab", slab_kw), ("gather", {})):
+            gd, gp = LR.lsh_rerank(*args, metric=idx.metric, k=k, **kw)
+            agree, err = compare(torch, (gd, gp, gp >= 0), (wd, wp, wp >= 0))
+            swaps, gap = tie_gap(torch, gp, wp,
+                                 lsh_d64(torch, state.vectors, qt, c, norms, idx.metric))
+            print(f"parity: lsh_rerank {form} form on the path's candidates, k={k}: position "
+                  f"agreement {agree:.6f}, max abs err {err:.3g}, valid results "
+                  f"{int((gp >= 0).sum())}; {swaps} differing ranks, all ties (largest f64 "
+                  f"gap {gap:.3g} <= {TIE_TOL})")
+            worst_err = max(worst_err, err)
+            if k == 10:
+                recalls[form], ties[form] = recall_of(gp), swaps
+            del gd, gp
+        del wd, wp
+    print(f"recall@10 on the path's candidates against the exact scan of the same state: "
+          f"slab form {recalls['slab']:.6f}, gather form {recalls['gather']:.6f}, plain "
+          f"{recalls['plain']:.6f}")
+    # the forms may differ from the plain version only in verified ties, each of
+    # which moves at most one of the 10 * B answers
+    check(recalls["slab"] >= recalls["gather"] - (ties["slab"] + ties["gather"]) / c.shape[0] / 10
+          and recalls["slab"] >= MIN_LSH_RECALL,
+          "the slab-major form answers below the gather form beyond their ties")
+    # the two forms in turns on the same arguments: gather, slab, slab, gather
+    turns = [time_ms(torch, lambda: LR.lsh_rerank(*args, k=10, **kw), 5)
+             for kw in ({}, slab_kw, slab_kw, {})]
+    gather_ms, ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+    slab128_ms = time_ms(torch, lambda: LR.lsh_rerank(*args, k=128, **slab_kw), 3)
     plain_ms = time_ms(torch, lambda: LR.lsh_rerank_reference(*args, k=10), 1)
     n_valid = float(valid.sum())
     B = c.shape[0]
@@ -703,10 +829,14 @@ def lsh_path(torch, zt, TB, LR, tmp, base, queries):
     lsh_bound = bound_ms(c.numel() * 4 + n_valid * 8 + rows * dim * 4 + B * (dim * 4 + 80),
                          n_valid * 2 * dim, PEAK_F32)
     print(f"timing: lsh_rerank on the path's candidates, B={B} M={c.shape[1]} "
-          f"({n_valid / B:.0f} valid per query): kernel {ms:.3f} ms, plain "
-          f"{plain_ms:.3f} ms; every query reading its own rows is {stream:.3f} ms at "
-          f"3.35 TB/s; bound {lsh_bound[0]:.3f} ms by {lsh_bound[1]} ({rows} distinct slab "
-          f"rows among {n_valid:.0f} valid candidates, f32 rate)")
+          f"({n_valid / B:.0f} valid per query, {idx._next_slot} occupied slab rows), in turns "
+          f"gather {turns[0]:.3f}, slab {turns[1]:.3f}, slab {turns[2]:.3f}, gather "
+          f"{turns[3]:.3f} ms; slab form k=128 {slab128_ms:.3f} ms; plain {plain_ms:.3f} ms; "
+          f"every query reading its own rows is {stream:.3f} ms at 3.35 TB/s; bound "
+          f"{lsh_bound[0]:.3f} ms by {lsh_bound[1]} ({rows} distinct slab rows among "
+          f"{n_valid:.0f} valid candidates, f32 rate): the slab form reaches "
+          f"{lsh_bound[0] / ms:.3f} of it, the gather form {lsh_bound[0] / gather_ms:.3f}")
+    check(ms < gather_ms, "the slab-major form must beat the gather form where it is taken")
     del args, c, norms, valid, cand, cvalid
     torch.cuda.empty_cache()
     cand_ms = time_ms(torch, lambda: TB._candidates(state, qt, probes, mc, lossless), 2)
@@ -720,7 +850,7 @@ def lsh_path(torch, zt, TB, LR, tmp, base, queries):
     print(f"lsh stages, {B} queries, one device query ({passes} passes of the free-memory "
           f"split): whole {query_ms:.3f} ms; candidate stage on all {B} at once "
           f"{cand_ms:.3f} ms, candidate casts and norm gather {prep_ms:.3f} ms, kernel "
-          f"{ms:.3f} ms; exact scan (buckets.brute_force) {exact_ms:.3f} ms")
+          f"(slab form, all {B} at once) {ms:.3f} ms; exact scan (buckets.brute_force) {exact_ms:.3f} ms")
     t0 = time.perf_counter()
     idx.search_arrays(queries[:B], 10)
     lsh_s = time.perf_counter() - t0
@@ -731,7 +861,9 @@ def lsh_path(torch, zt, TB, LR, tmp, base, queries):
           f"exact scan {exact_s * 1e3:.1f} ms (host clock, synchronised)")
     del db, idx, state
     torch.cuda.empty_cache()
-    return launches, worst_err, ms, plain_ms, lsh_bound
+    return {"launches": launches, "launches_slab": slab_launches, "max_abs_err": worst_err,
+            "ms": ms, "gather_ms": gather_ms, "plain_ms": plain_ms, "bound_ms": lsh_bound[0],
+            "bound_by": lsh_bound[1]}
 
 
 def aug_path(torch, V, TX, device, K=16384, C=128, D=DIM, P=4, B=1024, B_time=N_QUERIES):
@@ -869,7 +1001,8 @@ def main() -> int:
     t_start = time.perf_counter()
 
     # phase 2: build, one nvcc per kernel, all at once
-    kernels = ("ivf_rerank", "lsh_rerank", "ivf_rerank_wave", "ivf_rerank_aug")
+    kernels = ("ivf_rerank", "lsh_rerank", "lsh_rerank_slab", "ivf_rerank_wave",
+               "ivf_rerank_aug")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(kernels)) as pool:
         list(pool.map(_kernels.load, kernels))
@@ -911,8 +1044,7 @@ def main() -> int:
     # phase 6: the LSH path
     tmp = tempfile.mkdtemp(prefix="zebra_smoke_lsh_")
     try:
-        lsh_launches, path_err, lsh_ms, lsh_plain_ms, lsh_bound = lsh_path(
-            torch, zt, TB, LR, tmp, base, queries)
+        lsh_run = lsh_path(torch, zt, TB, LR, tmp, base, queries)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -937,7 +1069,8 @@ def main() -> int:
 
     # phase 9: the augmented-slab surface
     aug_launches, aug_rec = aug_path(torch, V, TX, device)
-    print(f"launches: ivf_rerank {launches}, lsh_rerank {lsh_launches}, ivf_rerank_wave "
+    print(f"launches: ivf_rerank {launches}, lsh_rerank {lsh_run['launches']} (slab-major form "
+          f"{lsh_run['launches_slab']}), ivf_rerank_wave "
           f"{wave_launches}, ivf_rerank_aug {aug_launches} over their paths; the whole run "
           f"took {time.perf_counter() - t_start:.0f} s after the card check")
 
@@ -951,9 +1084,16 @@ def main() -> int:
 
     print(json.dumps({"kernels": [
         entry("ivf_rerank", "zebra_tpu/ops/pallas_ivf.py:72", launches, rec),
-        entry("lsh_rerank", "zebra_tpu/ops/pallas_rerank.py:48", lsh_launches,
-              {"max_abs_err": max(lsh_rec["max_abs_err"], path_err), "ms": lsh_ms,
-               "plain_ms": lsh_plain_ms, "bound_ms": lsh_bound[0], "bound_by": lsh_bound[1]}),
+        # one TPU kernel, two forms on the card: the entry's source and time
+        # are those of the slab-major form, which the path launched
+        {**entry("lsh_rerank_slab", "zebra_tpu/ops/pallas_rerank.py:48", lsh_run["launches"],
+                 {**lsh_run, "max_abs_err": max(lsh_rec["max_abs_err"], lsh_run["max_abs_err"])}),
+         "name": "lsh_rerank",
+         "forms": {"slab": {"source": "zebra_tpu_torch/csrc/lsh_rerank_slab.cu",
+                            "launches": lsh_run["launches_slab"], "ms": lsh_run["ms"]},
+                   "gather": {"source": "zebra_tpu_torch/csrc/lsh_rerank.cu",
+                              "launches": lsh_run["launches"] - lsh_run["launches_slab"],
+                              "ms": lsh_run["gather_ms"]}}},
         entry("ivf_rerank_wave", "zebra_tpu/ops/experimental_ivf.py:34", wave_launches,
               {**path_rec, "max_abs_err": max(wave_rec["max_abs_err"], path_rec["max_abs_err"])}),
         entry("ivf_rerank_aug", "zebra_tpu/ops/experimental_ivf.py:178", aug_launches, aug_rec),

@@ -1,6 +1,6 @@
 """The torch port on a CUDA card: the hand-written kernels (IVF probe
-re-rank, LSH candidate re-rank, one-slab wave re-rank, augmented-slab
-re-rank) against their plain versions, and the facade's main paths through
+re-rank, LSH candidate re-rank in its gather and slab-major forms, one-slab
+wave re-rank, augmented-slab re-rank) against their plain versions, and the facade's main paths through
 them.
 
 Imports neither JAX nor the JAX package, so it runs where only torch is
@@ -168,6 +168,60 @@ def test_lsh_kernel_matches_plain_version(cuda, metric, dtype, W, D):
             _check((gd, gp, gv), (wd, wp, wv), q, metric)
 
 
+def _compacted(cand, norms, valid):
+    """The valid entries of sorted rows moved to the front in their order,
+    -1 pads after (the layout ``buckets._candidates`` compacts to)."""
+    order = torch.sort(1.0 - valid, dim=1, stable=True).indices
+    ok = torch.gather(valid, 1, order)
+    cand = torch.where(ok > 0, torch.gather(cand, 1, order), torch.full_like(cand, -1))
+    return cand.contiguous(), torch.gather(norms, 1, order).contiguous(), ok.contiguous()
+
+
+@pytest.mark.parametrize("metric", ["cosine", "l2", "sql2"])
+@pytest.mark.parametrize("W,D", [(768, 768), (1024, 768), (102, 102)])  # cp.async, stride, plain loads
+@pytest.mark.parametrize("B", [48, 200])  # one ragged query group; two, the second ragged
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lsh_slab_form_matches_plain_version_and_gather_form(cuda, metric, W, D, B, dtype):
+    """Sorted rows wide enough for the slab-major form: both forms against
+    the plain version. 20000 rows end mid-tile (20000 = 156 * 128 + 32)."""
+    from zebra_tpu_torch.ops import lsh_rerank as LR
+
+    S = 20000
+    vec, q, cand, norms, valid = _lsh_inputs(cuda, S, W, D, B, 3000, dtype)
+    for args, occupied in (((cand, norms, valid), None),
+                           (_compacted(cand, norms, valid), S - 100)):
+        if occupied is not None:  # no valid slot at or past `occupied`
+            args[2][args[0] >= occupied] = 0.0
+        for k in (10, 128):
+            assert LR.takes_slab_form(True, vec.dtype, k, 3000, occupied or S)
+            total, slab = LR.LAUNCHES, LR.LAUNCHES_SLAB
+            sd, sp = LR.lsh_rerank(vec, q, *args, metric, k, sorted_slots=True, occupied=occupied)
+            assert (LR.LAUNCHES, LR.LAUNCHES_SLAB) == (total + 1, slab + 1)
+            gd, gp = LR.lsh_rerank(vec, q, *args, metric, k)
+            assert (LR.LAUNCHES, LR.LAUNCHES_SLAB) == (total + 2, slab + 1)
+            wd, wp = LR.lsh_rerank_reference(vec, q, *args, metric, k)
+            wv = wp >= 0
+            for d, p in ((sd, sp), (gd, gp)):
+                assert torch.equal(p >= 0, wv) and not bool((p[0] >= 0).any())
+                assert bool(torch.isinf(d[~wv]).all())
+                _check((d, p, p >= 0), (wd, wp, wv), q, metric)
+
+
+def test_lsh_slab_form_takes_a_single_candidate_column(cuda):
+    from zebra_tpu_torch.ops import lsh_rerank as LR
+
+    vec, q, _, _, _ = _lsh_inputs(cuda, 16, 64, 64, 5, 4, torch.float32)
+    cand = torch.tensor([[3], [-1], [15], [0], [7]], dtype=torch.int32, device=cuda)
+    valid = torch.tensor([[1.0], [0.0], [1.0], [0.0], [1.0]], device=cuda)
+    norms = (vec ** 2).sum(-1)[cand.clamp(min=0).long()]
+    slab = LR.LAUNCHES_SLAB
+    gd, gp = LR.lsh_rerank(vec, q, cand, norms, valid, "cosine", 3, sorted_slots=True)
+    assert LR.LAUNCHES_SLAB == slab + 1
+    wd, wp = LR.lsh_rerank_reference(vec, q, cand, norms, valid, "cosine", 3)
+    assert torch.equal(gp, wp) and gp[:, 0].tolist() == [0, -1, 0, -1, 0]
+    torch.testing.assert_close(gd, wd, rtol=1e-4, atol=1e-4)  # row 7 is zero: distance 1
+
+
 def test_lsh_kernel_refuses_what_it_does_not_take(cuda):
     from zebra_tpu_torch.ops import lsh_rerank as LR
 
@@ -180,6 +234,8 @@ def test_lsh_kernel_refuses_what_it_does_not_take(cuda):
         LR.lsh_rerank(vec, q, cand.T.contiguous().T, norms, valid)
     with pytest.raises(ValueError, match="f32 or bf16"):
         LR.lsh_rerank(vec.half(), q, cand, norms, valid)
+    with pytest.raises(ValueError, match="occupied"):
+        LR.lsh_rerank(vec, q, cand, norms, valid, sorted_slots=True, occupied=1001)
 
 
 def test_lsh_query_cuda_matches_eager_on_the_card(cuda):

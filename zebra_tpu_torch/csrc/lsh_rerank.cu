@@ -1,6 +1,8 @@
-// LSH candidate re-rank for Hopper (sm_90a): per query, gather its M
-// candidate slab rows by slot, take full-f32 dots with the query, build the
-// distance from the stored squared norm and keep the top k.
+// LSH candidate re-rank for Hopper (sm_90a), gather form: per query, gather
+// its M candidate slab rows by slot, take full-f32 dots with the query, build
+// the distance from the stored squared norm and keep the top k. The wrapper
+// launches it for sparse or unsorted candidates and for bf16 slabs; sorted
+// rows that hold a large share of the slab go to csrc/lsh_rerank_slab.cu.
 //
 // Replaces zebra_tpu/ops/pallas_rerank.py:48 (_kernel_factory, the Pallas
 // fused gather + distance + top-k kernel), reached through the wrapper
@@ -15,7 +17,10 @@
 // near streaming bandwidth once enough rows are in flight. On the LSH
 // defaults at 1M x 768 f32 (1024 queries, M = 312,320 compacted candidates,
 // ~201,858 valid each) that is 1.3 GB of flags and 0.64 TB of rows: 190 ms
-// at 3.35 TB/s.
+// at 3.35 TB/s. That traffic is this form's own floor, not the work's: the
+// 0.64 TB are 999,900 distinct rows (3.1 GB) read ~200 times each, which is
+// why such batches take the slab-major form and this one keeps the batches
+// whose rows are mostly read once.
 //
 // Design: one block (256 threads, 8 warps) per query. The query sits in
 // shared memory and, on the vector path, in each lane's registers (the

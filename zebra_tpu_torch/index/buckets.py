@@ -318,7 +318,7 @@ def _query_chunk_rows(state: LSHState, B: int, width: int, eager: bool) -> int:
 
 def query(state: LSHState, q: torch.Tensor, k: int, metric: str = "cosine",
           num_probes: int = 8, rerank: str = "eager", max_candidates: int = 0,
-          lossless: bool = False, dim: int | None = None):
+          lossless: bool = False, dim: int | None = None, occupied: int | None = None):
     """Approximate top-k: hash -> multi-probe gather -> dedup -> exact
     re-rank + top-k.
 
@@ -328,6 +328,11 @@ def query(state: LSHState, q: torch.Tensor, k: int, metric: str = "cosine",
     ``dim`` (default W) columns of each row; a wider k takes the eager path
     and is counted in :data:`EAGER_LARGE_K`. ``max_candidates <= 0`` keeps
     every probed entry; ``lossless`` compacts without dropping any.
+    ``occupied`` is the host's count of allocated slab slots (slots are a
+    bump allocator, so every stored slot lies below it; default: the slab's
+    capacity): with the rows' sorted order, which :func:`_candidates`
+    guarantees, it lets the wrapper choose its kernel form without a device
+    read.
 
     Returns ``(dists [B, k], slots [B, k] int64, valid [B, k])``; missing
     results are +inf / -1 / False.
@@ -355,7 +360,8 @@ def query(state: LSHState, q: torch.Tensor, k: int, metric: str = "cosine",
             continue
         norms = state.norms[torch.clamp(cand, 0, S - 1).long()]
         d, pos = LR.lsh_rerank(state.vectors, qc[:, :dim].contiguous(), cand.int().contiguous(),
-                               norms, cand_valid.float(), metric=metric, k=k)
+                               norms, cand_valid.float(), metric=metric, k=k,
+                               sorted_slots=True, occupied=occupied)
         valid = pos >= 0
         slots = torch.gather(cand, 1, torch.clamp(pos, 0, cand.shape[1] - 1).long()).long()
         outs.append((d, torch.where(valid, slots, torch.full_like(slots, -1)), valid))

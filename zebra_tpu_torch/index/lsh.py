@@ -272,7 +272,7 @@ class LSHIndex(BaseVectorIndex):
         mc, lossless = self._candidate_width(probes)
         return B.query(self.state, q, k, metric=self.metric, num_probes=probes,
                        rerank=self.options.rerank, max_candidates=mc, lossless=lossless,
-                       dim=self.dim)
+                       dim=self.dim, occupied=self._next_slot)
 
     # -- persistence -------------------------------------------------------------------------
 

@@ -8,7 +8,10 @@ card (parent, change, change, parent), and read the lines side by side:
 
 It uses the checkout's own ``chip_smoke.py`` for the synthetic IVF state (the
 main path's sizing: K=16384, C=128, D=768, int8 + residual, 45% live) and for
-the synthetic LSH candidates (a 2M x 768 slab, B=16384, M=3000 and 65,536).
+the synthetic LSH candidates (a 2M x 768 slab, B=16384, M=3000 and 65,536:
+the gather form; and, where the checkout has it, the sorted dense case of
+B=1024 queries each holding ~20% of 1M occupied rows: the slab-major form
+beside the gather form on the same arguments).
 Times are CUDA-event means; the host-to-host figure is a host clock around
 ``search_arrays`` (host arrays in and out).
 """
@@ -69,6 +72,16 @@ def main(label: str) -> int:
             out.append(f"M={M} {str(vec.dtype)[6:]} " + "/".join(f"{m:.3f}" for m in ms))
         del cand, valid, norms
     print(f"{label}: lsh_rerank " + "; ".join(out) + " ms", flush=True)
+    if hasattr(cs, "lsh_dense_candidates"):
+        cand, norms, valid = cs.lsh_dense_candidates(torch, dev, slab, 1024, cs.DENSE_OCCUPIED,
+                                                     cs.DENSE_SHARE, 9)
+        args = (slab, q[:1024], cand, norms, valid)
+        kw = dict(sorted_slots=True, occupied=cs.DENSE_OCCUPIED)
+        ms = [cs.time_ms(torch, lambda: LR.lsh_rerank(*args, k=k, **form), 3)
+              for k in (10, 128) for form in ({}, kw, kw, {})]
+        print(f"{label}: lsh_rerank sorted dense B=1024 M={cand.shape[1]} f32, gather/slab/slab/"
+              f"gather: k=10 " + "/".join(f"{m:.3f}" for m in ms[:4]) + "; k=128 "
+              + "/".join(f"{m:.3f}" for m in ms[4:]) + " ms", flush=True)
     return 0
 
 
