@@ -11,7 +11,10 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    per source, all started together);
 3. IVF kernel parity at its main path's shapes (D=768, C=128, P=2, k=10 and
    k=128, B=1024; ragged counts, tombstones, an all-invalid probe) against
-   the plain torch version, and both timed at B=16384;
+   the plain torch version, and both timed at B=16384; then its forms
+   without a residual on the same synthetic state (plain int8 with scales,
+   the coarse values as bf16 and as f32; P=4, three metrics, k=10 and 128,
+   B=1024), each timed at B=16384, P=4 beside its bound;
 4. the IVF path at the library defaults: ``Database.create`` with
    ``DatabaseConfig(dim=768)``, ``insert_vectors`` of 1M rows, ``query`` in
    batches of 1024, recall@10 against the exact scan, self-retrieval,
@@ -52,12 +55,18 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    ``augment_slab`` -> ``ivf_rerank_aug`` driven as the JAX package's
    ablation tool drives it (its launch count), then the kernel against its
    plain version (three metrics, k=10/128, ``exact`` on and off, B=1024) and
-   both timed at B=1024 and B=16384.
+   both timed at B=1024 and B=16384;
+10. the bf16 "balanced" tier: ``DatabaseConfig(dim=768,
+   index=IndexOptions.tier("balanced"))`` through the same facade calls and
+   checks as phase 4 (the probe kernel's bf16 form; its launch count over
+   the path), then, on the path's own probes, the kernel against its plain
+   version and the stages of one device query by CUDA events.
 
 A kernel's ``bound_ms`` is the larger of its distinct bytes (every input
 byte once, every output byte once) over 3.35 TB/s and its operations over
 the card's peak rate for their type, both counted from the timed inputs.
-The second-to-last line is the kernels' JSON record, the last line
+The second-to-last line is the kernels' JSON record (``ivf_rerank`` and
+``lsh_rerank`` carry their ``forms``), the last line
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
 
@@ -187,11 +196,10 @@ def lsh_d64(torch, vectors, q, cand, norms, metric):
     return d64
 
 
-def wave_d64(torch, st, q, metric):
-    """f64 distance of query ``b`` to slab slot ``slot`` as the wave re-rank
-    defines it (bf16-rounded query on a reduced slab, coarse slab only)."""
-    qq = q if st.vectors.dtype == torch.float32 else q.to(torch.bfloat16).float()
-
+def slab_d64(torch, st, qq, metric):
+    """f64 distance of query ``b`` to slab slot ``slot`` on one slab (no
+    residual), ``qq`` the query as the kernel multiplies it (the wave
+    re-rank's is bf16-rounded on reduced slabs: ``TX._wave_query``)."""
     def d64(b, slot):
         x = st.vectors[slot].double()
         if st.scales is not None:
@@ -209,21 +217,26 @@ def bound_ms(n_bytes: float, n_ops: float, peak: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def probe_bound(torch, st, probes, B, k, slabs: int, peak: float):
-    """Bound of a probe re-rank of int8 slab(s) on these inputs. Bytes: the
-    queries, probes and results, and every DISTINCT probed block once — its
-    count, the validity flags of its allocated prefix and, per live row,
-    ``slabs`` * D code bytes with a scale each, plus the norm. Operations: 2*D
-    per slab for every (query, probe, live row)."""
+def probe_bound(torch, st, probes, B, k, peak: float, residual: bool = False):
+    """Bound of a probe re-rank on these inputs. Bytes: the queries, probes
+    and results, and every DISTINCT probed block once — its count, the
+    validity flags of its allocated prefix and, per live row, its D slab
+    elements (and scale, on int8), its norm and, with ``residual``, D more
+    code bytes and a scale. Operations: 2*D per slab for every (query,
+    probe, live row). Also returns the distinct blocks and the bytes of
+    every (query, probe) pair reading its own live rows."""
     K, C, D = st.num_clusters, st.cluster_capacity, st.dim
     live = (st.valid[: K * C].view(K, C)
             & (torch.arange(C, device=probes.device) < st.counts[:K, None])).sum(1)
     blocks = torch.unique(probes)
     n_live = float(live[blocks].sum())
+    row = (D * st.vectors.element_size() + (4 if st.scales is not None else 0) + 4
+           + (D + 4 if residual else 0))
     n_bytes = (B * D * 4 + probes.numel() * 4 + B * k * 12 + blocks.numel() * 4
-               + float(st.counts[blocks.long()].sum()) + n_live * (slabs * (D + 4) + 4))
-    n_ops = float(live[probes].sum()) * 2 * D * slabs
-    return bound_ms(n_bytes, n_ops, peak), int(blocks.numel())
+               + float(st.counts[blocks.long()].sum()) + n_live * row)
+    pairs = float(live[probes].sum())
+    return (bound_ms(n_bytes, pairs * 2 * D * (2 if residual else 1), peak),
+            int(blocks.numel()), pairs * row)
 
 
 def time_ms(torch, fn, reps: int) -> float:
@@ -239,13 +252,14 @@ def time_ms(torch, fn, reps: int) -> float:
 
 
 def kernel_parity(torch, V, R, device, B=1024, B_time=N_QUERIES):
-    """Phase 3: kernel vs plain version at the main path's shapes."""
+    """Phase 3: kernel 1 against its plain version in each slab form at the
+    main path's shapes; returns each form's record."""
     st = synthetic_state(torch, V, device)
     K = st.num_clusters
     g = torch.Generator(device=device).manual_seed(SEED + 1)
     q = torch.randn((B, st.dim), generator=g, device=device)
     probes = synthetic_probes(torch, device, B, K, SEED + 2)
-    worst_agree, worst_err = 1.0, 0.0
+    worst_err = 0.0
     for metric, k in (("cosine", 10), ("l2", 10), ("sql2", 10), ("cosine", 128)):
         got = R.ivf_rerank(st, q, probes, k, metric)
         want = R.ivf_rerank_reference(st, q, probes, k, metric, dots="highest")
@@ -254,20 +268,51 @@ def kernel_parity(torch, V, R, device, B=1024, B_time=N_QUERIES):
               f"max abs err {err:.3g}, valid results {int(got[2].sum())}")
         check(agree >= MIN_SLOT_AGREEMENT, f"slot agreement {agree} < {MIN_SLOT_AGREEMENT}")
         check(not bool(got[2][0].any()), "query 0 probes only invalid rows")
-        worst_agree, worst_err = min(worst_agree, agree), max(worst_err, err)
+        worst_err = max(worst_err, err)
     qt = torch.randn((B_time, st.dim), generator=g, device=device)
     pt = synthetic_probes(torch, device, B_time, K, SEED + 3)
     ms = time_ms(torch, lambda: R.ivf_rerank(st, qt, pt, 10, "cosine"), 20)
     plain_ms = time_ms(torch, lambda: R.ivf_rerank_reference(st, qt, pt, 10, "cosine"), 3)
     fill = float(st.valid[: K * st.cluster_capacity].float().mean())
-    (bound, by), blocks = probe_bound(torch, st, pt, B_time, 10, slabs=2, peak=PEAK_F32)
+    (bound, by), blocks, _ = probe_bound(torch, st, pt, B_time, 10, PEAK_F32, residual=True)
     print(f"timing: ivf_rerank B={B_time} P=2 C=128 D={st.dim} k=10 (live fill {fill:.3f}): "
           f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms; bound {bound:.3f} ms by {by} "
           f"({blocks} distinct blocks of {pt.numel()} probes, f32 rate)")
+    forms = {"int8+residual": {"max_abs_err": worst_err, "ms": ms, "plain_ms": plain_ms,
+                               "bound_ms": bound, "bound_by": by}}
+
+    # the forms without a residual, on the coarse values of the same state
+    probes = synthetic_probes(torch, device, B, K, SEED + 10, P=4)
+    pt = synthetic_probes(torch, device, B_time, K, SEED + 11, P=4)
+    for name, dtype in (("int8", torch.int8), ("bf16", torch.bfloat16), ("f32", torch.float32)):
+        s1 = one_slab(torch, st, dtype)
+        err_t, agree_t, swaps_t = 0.0, 1.0, 0
+        for metric, k in (("cosine", 10), ("l2", 10), ("sql2", 10), ("cosine", 128),
+                          ("sql2", 128)):
+            got = R.ivf_rerank(s1, q, probes, k, metric)
+            want = R.ivf_rerank_reference(s1, q, probes, k, metric)
+            agree, err = compare(torch, got, want)
+            check(agree >= MIN_SLOT_AGREEMENT, f"slot agreement {agree} < {MIN_SLOT_AGREEMENT}")
+            check(not bool(got[2][0].any()), "query 0 probes only invalid rows")
+            swaps, _ = tie_gap(torch, got[1], want[1], slab_d64(torch, s1, q, metric))
+            err_t, agree_t, swaps_t = max(err_t, err), min(agree_t, agree), swaps_t + swaps
+        ms = time_ms(torch, lambda: R.ivf_rerank(s1, qt, pt, 10, "cosine"), 20)
+        plain_ms = time_ms(torch, lambda: R.ivf_rerank_reference(s1, qt, pt, 10, "cosine"), 2)
+        (bound, by), blocks, stream = probe_bound(torch, s1, pt, B_time, 10, PEAK_F32)
+        print(f"parity: ivf_rerank {name} slab (no residual), P=4, 3 metrics at k=10 and "
+              f"cosine/sql2 at k=128, B={B}: worst slot agreement {agree_t:.6f}, max abs err "
+              f"{err_t:.3g}; {swaps_t} differing ranks, all ties (f64 gap <= {TIE_TOL})")
+        print(f"timing: ivf_rerank {name} slab B={B_time} P=4 C=128 D={st.dim} k=10: kernel "
+              f"{ms:.3f} ms, plain {plain_ms:.3f} ms; bound {bound:.3f} ms by {by} ({blocks} "
+              f"distinct blocks of {pt.numel()} probes, f32 rate); every query reading its own "
+              f"live rows moves {stream / 1e9:.2f} GB, {stream / ms / 1e9:.2f} TB/s")
+        forms[name] = {"max_abs_err": err_t, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                       "bound_by": by}
+        del s1
+        torch.cuda.empty_cache()
     del st
     torch.cuda.empty_cache()
-    return {"max_abs_err": worst_err, "slot_agreement": worst_agree, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by}
+    return forms
 
 
 def one_slab(torch, st, dtype):
@@ -308,7 +353,8 @@ def wave_kernel_parity(torch, V, TX, device, B=1024, B_time=N_QUERIES):
                     check(agree >= MIN_SLOT_AGREEMENT,
                           f"slot agreement {agree} < {MIN_SLOT_AGREEMENT}")
                     check(not bool(got[2][0].any()), "query 0 probes only invalid rows")
-                    swaps, _ = tie_gap(torch, got[1], want[1], wave_d64(torch, st, q, metric))
+                    swaps, _ = tie_gap(torch, got[1], want[1],
+                                       slab_d64(torch, st, TX._wave_query(st, q), metric))
                     agree_t, err_t = min(agree_t, agree), max(err_t, err)
                     swaps_t += swaps
         print(f"parity: ivf_rerank_wave {str(dtype)[6:]} slab, P=4 and 3, 3 metrics x "
@@ -323,7 +369,7 @@ def wave_kernel_parity(torch, V, TX, device, B=1024, B_time=N_QUERIES):
     pt = synthetic_probes(torch, device, B_time, K, SEED + 7, P=4)
     ms = time_ms(torch, lambda: TX.ivf_rerank_wave(st, qt, pt, 40, "cosine"), 20)
     plain_ms = time_ms(torch, lambda: TX.ivf_rerank_wave_reference(st, qt, pt, 40, "cosine"), 2)
-    (bound, by), blocks = probe_bound(torch, st, pt, B_time, 40, slabs=1, peak=PEAK_BF16)
+    (bound, by), blocks, _ = probe_bound(torch, st, pt, B_time, 40, PEAK_BF16)
     print(f"timing: ivf_rerank_wave B={B_time} P=4 C=128 D={st.dim} k=40 int8 (synthetic "
           f"state): kernel {ms:.3f} ms, plain {plain_ms:.3f} ms; bound {bound:.3f} ms by {by} "
           f"({blocks} distinct blocks of {pt.numel()} probes, bf16 rate)")
@@ -335,15 +381,19 @@ def wave_kernel_parity(torch, V, TX, device, B=1024, B_time=N_QUERIES):
 def main_path(torch, zt, V, tmp, base, queries, cfg, tag, counter):
     """Phases 4 and 8: an IVF configuration through the facade. ``counter``
     is the ``(module, attribute)`` of the launch count of the kernel the
-    configuration resolves to: set to 0 here, read at the end. Returns that
-    count, the open database, the inserted ids, and the base-row numbers of
-    the top-10 of the first 1024 held-out queries (after the remove)."""
+    configuration resolves to: set to 0 here, read at the end, as is its
+    count by slab form where the module keeps one (``<attribute>_BY_FORM``).
+    Returns that count, the open database, the inserted ids, the base-row
+    numbers of the top-10 of the first 1024 held-out queries (after the
+    remove), and the count by form ({} where there is none)."""
     import numpy as np
     from zebra_tpu_torch.utils import device_sync
 
     (n, dim), n_queries = base.shape, queries.shape[0]
     path = os.path.join(tmp, "smoke.zebra")
     setattr(*counter, 0)
+    by_form = getattr(counter[0], counter[1] + "_BY_FORM", {})
+    by_form.clear()
     V.EAGER_LARGE_K = 0
     t0 = time.perf_counter()
     db = zt.Database.create(path, cfg)
@@ -353,6 +403,8 @@ def main_path(torch, zt, V, tmp, base, queries, cfg, tag, counter):
     st = db.index.stats()
     print(f"{tag}insert: {n} x {dim} in {build_s:.2f} s = {n / build_s:.0f} rows/s "
           f"(durability={db.config.durability}, rerank={db.index.options.rerank}, "
+          f"slab={str(db.index.state.vectors.dtype)[6:]}, wal={db.index._wal_codec}, "
+          f"wire={db.index._wire_row_bytes} B/row, "
           f"refine={db.index.options.refine}, probes={db.index.options.resolved_probes()}, "
           f"clusters={st['clusters']}, C={st['cluster_capacity']}, "
           f"spare={st['spare_capacity']}, spare_used={st['spare_used']}, "
@@ -379,6 +431,19 @@ def main_path(torch, zt, V, tmp, base, queries, cfg, tag, counter):
     print(f"{tag}recall@10: {recall:.4f} over 1024 held-out queries (vs the exact scan "
           f"of the stored reconstruction)")
     check(recall >= MIN_RECALL, f"recall@10 {recall} < {MIN_RECALL}")
+    if db.index.options.query_wire_is_bf16():
+        # the index searched the queries rounded to bf16: split that rounding
+        # from the probe loss with an oracle that sees the same queries
+        _, wire, _ = V.brute_force(db.index.state, qt.to(torch.bfloat16).float(), 10,
+                                   metric=db.index.metric)
+        wire = wire.cpu().numpy()
+
+        def overlap(found, truth):
+            return float(np.mean([len(set(a) & set(b)) / 10 for a, b in zip(found, truth)]))
+
+        print(f"{tag}recall@10 against the exact scan of the queries as the bf16 query wire "
+              f"ships them: {overlap(approx, wire):.4f}; the two exact scans agree on "
+              f"{overlap(exact, wire):.4f}")
 
     pick = np.linspace(0, n - 1, 256).astype(np.int64)
     hits = db.query(base[pick], 1)
@@ -421,11 +486,13 @@ def main_path(torch, zt, V, tmp, base, queries, cfg, tag, counter):
     facade_qps = n_queries / (time.perf_counter() - t0)
     print(f"{tag}query: batch {n_queries}: {dev_qps:.0f} QPS (index.search_arrays, "
           f"device synchronised), {facade_qps:.0f} QPS (db.query, results formatted)")
-    launches = getattr(*counter)
-    print(f"{tag}launches: {counter[1]} {launches} over the path; eager large-k "
-          f"fallbacks {V.EAGER_LARGE_K}")
+    launches, launches_by_form = getattr(*counter), dict(by_form)
+    print(f"{tag}launches: {counter[1]} {launches} over the path "
+          f"{launches_by_form or ''}; eager large-k fallbacks {V.EAGER_LARGE_K}")
     check(launches > 0 and V.EAGER_LARGE_K == 0, "the path must run through its kernel")
-    return launches, db, ids, approx_rows
+    check(not launches_by_form or sum(launches_by_form.values()) == launches,
+          "the launches by form must add up to the launches")
+    return launches, db, ids, approx_rows, launches_by_form
 
 
 def refine_path_stages(torch, V, TX, db, ids, queries, scan_rows):
@@ -448,7 +515,8 @@ def refine_path_stages(torch, V, TX, db, ids, queries, scan_rows):
         # clustered data: near-equal distances swap by f32 summation order,
         # so every differing rank is held to a tie (as phase 6 does)
         agree, err = compare(torch, got, want)
-        swaps, gap = tie_gap(torch, got[1], want[1], wave_d64(torch, st, qt, metric))
+        swaps, gap = tie_gap(torch, got[1], want[1],
+                             slab_d64(torch, st, TX._wave_query(st, qt), metric))
         print(f"refine parity: ivf_rerank_wave on the path's probes, B={B} P={P} k={kk}: "
               f"slot agreement {agree:.6f}, max abs err {err:.3g}, valid results "
               f"{int(got[2].sum())}; {swaps} differing ranks, all ties (largest f64 gap "
@@ -456,7 +524,7 @@ def refine_path_stages(torch, V, TX, db, ids, queries, scan_rows):
         ms = time_ms(torch, lambda: TX.ivf_rerank_wave(st, qt, probes, kk, metric), 20)
         plain_ms = time_ms(
             torch, lambda: TX.ivf_rerank_wave_reference(st, qt, probes, kk, metric), 2)
-        (bound, by), blocks = probe_bound(torch, st, probes, B, kk, slabs=1, peak=PEAK_BF16)
+        (bound, by), blocks, _ = probe_bound(torch, st, probes, B, kk, PEAK_BF16)
         sel_ms = time_ms(
             torch, lambda: V.select_probes(st, qt, P, metric, idx.options.probe_sel), 10)
         ref_ms = time_ms(torch, lambda: V._refine_topk(st, qt, *got, 10, metric), 10)
@@ -490,6 +558,50 @@ def refine_path_stages(torch, V, TX, db, ids, queries, scan_rows):
     print(f"recall@10 of the same 1024 held-out queries against this phase's exact scan "
           f"(100 rows removed in both): refine=4 P=4 {recall(rows(approx)):.4f}; "
           f"refine='scan' P=2 (phase 4's answers) {recall(scan_rows.tolist()):.4f}")
+    return rec
+
+
+def plain_path_stages(torch, V, R, db, queries):
+    """Phase 10, after the facade run (these launches come after the count
+    was read): kernel 1's form of the tier on the path's own probes against
+    its plain version, and the stages of one device query by CUDA events, at
+    B=1024 and B=16384. Returns the kernel's record at B=16384."""
+    idx = db.index
+    st, metric, P = idx.state, idx.metric, idx.options.resolved_probes()
+    name = str(st.vectors.dtype)[6:]
+    rec = {}
+    for B in (1024, queries.shape[0]):
+        qt = torch.from_numpy(queries[:B]).to(idx.device)
+        probes = V.select_probes(st, qt, P, metric, idx.options.probe_sel)
+        got = R.ivf_rerank(st, qt, probes, 10, metric, scan_residual=False)
+        want = R.ivf_rerank_reference(st, qt, probes, 10, metric, scan_residual=False)
+        # clustered data: every differing rank must be a tie (as phase 8)
+        agree, err = compare(torch, got, want)
+        swaps, gap = tie_gap(torch, got[1], want[1], slab_d64(torch, st, qt, metric))
+        print(f"{name} parity: ivf_rerank on the path's probes, B={B} P={P} k=10: slot "
+              f"agreement {agree:.6f}, max abs err {err:.3g}, valid results "
+              f"{int(got[2].sum())}; {swaps} differing ranks, all ties (largest f64 gap "
+              f"{gap:.3g} <= {TIE_TOL})")
+        ms = time_ms(torch, lambda: R.ivf_rerank(st, qt, probes, 10, metric, False), 20)
+        plain_ms = time_ms(
+            torch, lambda: R.ivf_rerank_reference(st, qt, probes, 10, metric,
+                                                  scan_residual=False), 2)
+        (bound, by), blocks, stream = probe_bound(torch, st, probes, B, 10, PEAK_F32)
+        sel_ms = time_ms(
+            torch, lambda: V.select_probes(st, qt, P, metric, idx.options.probe_sel), 10)
+        spare = "spare empty, _merge_spare not run"
+        if idx._spare_used > 0:
+            sp = time_ms(torch, lambda: V._merge_spare(st, qt, *got, 10, metric), 5)
+            spare = f"_merge_spare {sp:.3f} ms"
+        whole_ms = time_ms(torch, lambda: idx._query_device(qt, 10, exact=False), 10)
+        print(f"{name} stages, B={B}, one device query {whole_ms:.3f} ms: select_probes "
+              f"{sel_ms:.3f} ms, ivf_rerank {ms:.3f} ms (plain {plain_ms:.3f} ms; bound "
+              f"{bound:.3f} ms by {by}, f32 rate; each (query, probe) reading its own live "
+              f"rows moves {stream / 1e9:.2f} GB, {stream / ms / 1e9:.2f} TB/s), {spare}; "
+              f"distinct probed blocks {blocks} of B*P = {B * P}")
+        rec = {"max_abs_err": max(err, rec.get("max_abs_err", 0.0)), "ms": ms,
+               "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by}
+        del got, want, probes
     return rec
 
 
@@ -1017,8 +1129,8 @@ def main() -> int:
             print(f"ptxas {name}: {len(regs)} kernels, {min(regs)}-{max(regs)} registers, "
                   f"{spills} with spills")
 
-    # phase 3: IVF kernel parity and timing
-    rec = kernel_parity(torch, V, R, device)
+    # phase 3: IVF kernel parity and timing, every slab form
+    forms = kernel_parity(torch, V, R, device)
 
     t0 = time.perf_counter()
     data = make_data(N_ROWS + N_QUERIES, DIM, SEED)
@@ -1029,8 +1141,10 @@ def main() -> int:
     # phase 4: the IVF path at the library defaults
     tmp = tempfile.mkdtemp(prefix="zebra_smoke_")
     try:
-        launches, db, _, scan_rows = main_path(
+        launches, db, _, scan_rows, scan_forms = main_path(
             torch, zt, V, tmp, base, queries, zt.DatabaseConfig(dim=DIM), "", (R, "LAUNCHES"))
+        check(set(scan_forms) == {"int8+residual"},
+              "the defaults must launch only the int8 + residual form")
         check(db.index.options.rerank == "cuda" and db.index.options.refine == "scan",
               "the bare defaults must resolve to the probe kernel in scan mode")
         del db
@@ -1056,7 +1170,7 @@ def main() -> int:
     try:
         cfg = zt.DatabaseConfig(dim=DIM, index=zt.IndexOptions(refine=4, rerank="pallas2"))
         R.LAUNCHES = 0
-        wave_launches, db, ids, _ = main_path(
+        wave_launches, db, ids, _, _ = main_path(
             torch, zt, V, tmp, base, queries, cfg, "refine ", (TX, "LAUNCHES_WAVE"))
         check(db.index.options.rerank == "cuda2" and R.LAUNCHES == 0,
               "refine=4 with rerank='pallas2' must run the wave kernel, never the probe kernel")
@@ -1065,14 +1179,30 @@ def main() -> int:
         torch.cuda.empty_cache()
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    del data, base, queries
 
     # phase 9: the augmented-slab surface
     aug_launches, aug_rec = aug_path(torch, V, TX, device)
-    print(f"launches: ivf_rerank {launches}, lsh_rerank {lsh_run['launches']} (slab-major form "
-          f"{lsh_run['launches_slab']}), ivf_rerank_wave "
-          f"{wave_launches}, ivf_rerank_aug {aug_launches} over their paths; the whole run "
-          f"took {time.perf_counter() - t_start:.0f} s after the card check")
+
+    # phase 10: the bf16 "balanced" tier through kernel 1's bf16 form
+    tmp = tempfile.mkdtemp(prefix="zebra_smoke_balanced_")
+    try:
+        cfg = zt.DatabaseConfig(dim=DIM, index=zt.IndexOptions.tier("balanced"))
+        bal_launches, db, _, _, bal_forms = main_path(
+            torch, zt, V, tmp, base, queries, cfg, "balanced ", (R, "LAUNCHES"))
+        check(set(bal_forms) == {"bf16"}, "the balanced tier must launch only the bf16 form")
+        check(db.index.options.rerank == "cuda" and db.index.state.vectors.dtype == torch.bfloat16
+              and db.index.state.scales is None,
+              "the balanced tier must store a bf16 slab and run the probe kernel")
+        forms["bf16"] = {**forms["bf16"], **plain_path_stages(torch, V, R, db, queries)}
+        del db
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    del data, base, queries
+    print(f"launches: ivf_rerank {launches} (int8 + residual) and {bal_launches} (bf16), "
+          f"lsh_rerank {lsh_run['launches']} (slab-major form {lsh_run['launches_slab']}), "
+          f"ivf_rerank_wave {wave_launches}, ivf_rerank_aug {aug_launches} over their paths; "
+          f"the whole run took {time.perf_counter() - t_start:.0f} s after the card check")
 
     def entry(name, replaces, n, r):
         return {"name": name, "route": "cuda", "source": f"zebra_tpu_torch/csrc/{name}.cu",
@@ -1082,8 +1212,19 @@ def main() -> int:
                 # no single PyTorch call gathers, scores and selects per query
                 "library_ms": None}
 
+    # one TPU kernel, four slab forms: the entry's time is the int8 +
+    # residual form's on the synthetic state (as in earlier runs); the bf16
+    # form's is on the balanced path's own probes, the others' synthetic.
+    # A form's launches are those counted by form over phases 4 and 10
+    form_launches = {name: scan_forms.get(name, 0) + bal_forms.get(name, 0) for name in forms}
+    ivf_rec = {**forms["int8+residual"],
+               "max_abs_err": max(f["max_abs_err"] for f in forms.values())}
     print(json.dumps({"kernels": [
-        entry("ivf_rerank", "zebra_tpu/ops/pallas_ivf.py:72", launches, rec),
+        {**entry("ivf_rerank", "zebra_tpu/ops/pallas_ivf.py:72", launches + bal_launches,
+                 ivf_rec),
+         "forms": {name: {"launches": form_launches[name], "ms": f["ms"],
+                          "plain_ms": f["plain_ms"], "bound_ms": f["bound_ms"],
+                          "bound_by": f["bound_by"]} for name, f in forms.items()}},
         # one TPU kernel, two forms on the card: the entry's source and time
         # are those of the slab-major form, which the path launched
         {**entry("lsh_rerank_slab", "zebra_tpu/ops/pallas_rerank.py:48", lsh_run["launches"],

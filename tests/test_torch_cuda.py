@@ -1,7 +1,8 @@
 """The torch port on a CUDA card: the hand-written kernels (IVF probe
-re-rank, LSH candidate re-rank in its gather and slab-major forms, one-slab
-wave re-rank, augmented-slab re-rank) against their plain versions, and the facade's main paths through
-them.
+re-rank in its int8 + residual, plain int8, bf16 and f32 slab forms, LSH
+candidate re-rank in its gather and slab-major forms, one-slab wave re-rank,
+augmented-slab re-rank) against their plain versions, and the facade's paths
+through them, with no device given (the card is the default).
 
 Imports neither JAX nor the JAX package, so it runs where only torch is
 installed. Every test needs a card and skips without one; on the card:
@@ -87,6 +88,39 @@ def test_kernel_matches_plain_version(cuda, metric, d):
         _check(got, TR.ivf_rerank_reference(st, q, probes, k, metric), q, metric)
 
 
+def _plain_slab(st, dtype):
+    """The int8 + residual state ``st`` as a state of one slab without a
+    residual: int8 codes with their scales (plain int8), or the
+    reconstruction cast to bf16 / f32; norms of what the slab stores."""
+    if dtype == torch.int8:
+        x = st.vectors.float() * st.scales[:, None]
+        return dataclasses.replace(st, norms=(x * x).sum(-1), residual=None, rscales=None)
+    vec = (st.vectors.float() * st.scales[:, None]
+           + st.residual.float() * st.rscales[:, None]).to(dtype)
+    return dataclasses.replace(st, vectors=vec, norms=(vec.float() ** 2).sum(-1),
+                               scales=None, residual=None, rscales=None)
+
+
+@pytest.mark.parametrize("metric", ["cosine", "l2", "sql2"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32, torch.int8])
+@pytest.mark.parametrize("d", [768, 101])  # 16-byte chunks (f32: 6 a lane), element path
+def test_kernel_slab_forms_match_plain_version(cuda, metric, dtype, d):
+    """The forms without a residual: bf16 and f32 slabs (no scales) and
+    plain int8 (scales, no residual)."""
+    st, x = _state(cuda, d)
+    st = _plain_slab(st, dtype)
+    q = torch.from_numpy(x[:256] + 0.05).to(cuda)
+    probes = TV.select_probes(st, q, 4, metric)
+    probes[0, 0] = 0  # the fully tombstoned cluster
+    form = {torch.bfloat16: "bf16", torch.float32: "f32", torch.int8: "int8"}[dtype]
+    for k in (10, 128):
+        before, by_form = TR.LAUNCHES, dict(TR.LAUNCHES_BY_FORM)
+        got = TR.ivf_rerank(st, q, probes, k, metric)
+        assert TR.LAUNCHES == before + 1
+        assert TR.LAUNCHES_BY_FORM == {**by_form, form: by_form.get(form, 0) + 1}
+        _check(got, TR.ivf_rerank_reference(st, q, probes, k, metric), q, metric)
+
+
 def test_kernel_refuses_what_it_does_not_take(cuda):
     st, x = _state(cuda, 64)
     q = torch.from_numpy(x[:4]).to(cuda)
@@ -95,6 +129,11 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
         TR.ivf_rerank(st, q, probes, 129)
     with pytest.raises(ValueError, match="shared"):
         TR.ivf_rerank(st, q, probes.repeat(1, 500), 10)
+    with pytest.raises(ValueError, match="scales"):
+        TR.ivf_rerank(dataclasses.replace(st, scales=None), q, probes, 10)
+    with pytest.raises(NotImplementedError, match="float16"):
+        TR.ivf_rerank(dataclasses.replace(_plain_slab(st, torch.float32),
+                                          vectors=st.vectors.half()), q, probes, 10)
 
 
 def test_query_cuda_matches_eager_on_the_card(cuda):
@@ -119,6 +158,35 @@ def test_facade_goes_through_the_kernel(cuda, tmp_path):
     again = T.Database.open(str(tmp_path / "g.zebra"))
     assert len(again) == 4086
     assert [row[0][0] for row in again.query(x[10:100], 1)] == ids[10:100]
+
+
+TIERS = {"balanced": T.IndexOptions.tier("balanced"), "f32": T.IndexOptions(dtype="float32"),
+         "int8": T.IndexOptions(dtype="int8", refine=0)}
+
+
+@pytest.mark.parametrize("tier", list(TIERS))
+def test_plain_tiers_go_through_the_kernel(cuda, tmp_path, tier):
+    """The bf16 ("balanced"), f32 and plain int8 tiers through the facade
+    with no device given: every query launches the probe kernel; removes,
+    a save, a reopen and the replay of an unsaved insert hold."""
+    x = _blobs(11, 4096, 128)
+    path = str(tmp_path / "p.zebra")
+    db = T.Database.create(path, T.DatabaseConfig(dim=128, index=TIERS[tier]))
+    assert db.index.device.type == "cuda" and db.index.options.rerank == "cuda"
+    ids = db.insert_vectors(x[:4000])
+    before, by_form = TR.LAUNCHES, dict(TR.LAUNCHES_BY_FORM)
+    top1 = db.query(x[:100], 1)
+    assert TR.LAUNCHES > before
+    form = {"balanced": "bf16"}.get(tier, tier)
+    assert TR.LAUNCHES_BY_FORM[form] - by_form.get(form, 0) == TR.LAUNCHES - before
+    assert [row[0][0] for row in top1] == ids[:100]
+    db.remove(ids[:10])
+    db.save()
+    ids += db.insert_vectors(x[4000:])  # logged, not saved
+    want = db.query(x[10:200], 10)
+    again = T.Database.open(path)
+    assert len(again) == 4086 and again.index.state.vectors.dtype == db.index.state.vectors.dtype
+    assert again.query(x[10:200], 10) == want
 
 
 # -- kernel 4: the LSH candidate re-rank (csrc/lsh_rerank.cu) -------------------

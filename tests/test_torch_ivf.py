@@ -3,7 +3,10 @@ the JAX package's, on the CPU, on states carried over from JAX.
 
 Placement and stored state must be bitwise equal (``norms`` to rtol 1e-6:
 the same f32 squares, summed in another order); query slots equal, distances
-to rtol 1e-5. The gather-refine query (``refine_k``) is held to the same
+to rtol 1e-5. The tiers without a residual (bf16, f32, plain int8; rows on
+the array wire, cast or quantised by ``ivf.insert``) are held to the same
+state bounds; their queries to equal slots or, where a slot differs, an
+f64-verified tie, and distances to rtol/atol 2e-3. The gather-refine query (``refine_k``) is held to the same
 bounds on the eager route; on the wave route (``rerank="pallas2"`` in
 interpret mode against the port's ``"cuda2"`` through the wave plain
 version) slots agree on >= 0.97 of positions and distances to 1e-4 of the
@@ -37,9 +40,21 @@ def to_port(st) -> TV.IVFState:
     return TV.state_from_numpy(arrays)
 
 
+def _host(a) -> np.ndarray:
+    """A state member (torch or JAX) as numpy, bf16 widened to f32."""
+    if isinstance(a, torch.Tensor):
+        return (a.float() if a.dtype == torch.bfloat16 else a).numpy()
+    a = np.asarray(a)
+    return a.astype(np.float32) if a.dtype.name == "bfloat16" else a
+
+
 def assert_state_equal(tst: TV.IVFState, jst):
+    assert tst.vectors.element_size() == np.asarray(jst.vectors).dtype.itemsize
     for f in ("counts", "vectors", "residual", "scales", "rscales", "valid", "overflow"):
-        np.testing.assert_array_equal(getattr(tst, f).numpy(), np.asarray(getattr(jst, f)), err_msg=f)
+        t, j = getattr(tst, f), getattr(jst, f)
+        assert (t is None) == (j is None), f
+        if t is not None:
+            np.testing.assert_array_equal(_host(t), _host(j), err_msg=f)
     np.testing.assert_allclose(tst.norms.numpy(), np.asarray(jst.norms), rtol=1e-6)
 
 
@@ -60,6 +75,40 @@ def assert_dists_close(metric, got, want, q):
 def _blobs(rng, n, d=128, centers=24, spread=0.3):
     c = rng.standard_normal((centers, d)).astype(np.float32)
     return c[rng.integers(0, centers, n)] + spread * rng.standard_normal((n, d)).astype(np.float32)
+
+
+#: the tiers without a residual: (JAX slab type, torch slab type, wire type)
+PLAIN = {"bf16": (jnp.bfloat16, torch.bfloat16, torch.bfloat16),
+         "f32": (jnp.float32, torch.float32, torch.float32),
+         "int8": (jnp.int8, torch.int8, torch.bfloat16)}
+
+
+def _plain_insert(jst, tst, x, tier, spill=8, metric="cosine"):
+    """The same rows through both packages' ``ivf.insert``, as the array wire
+    delivers them (bf16-rounded for the bf16 and plain int8 tiers)."""
+    wire = PLAIN[tier][2]
+    xt = torch.from_numpy(x).to(wire)
+    xj = jnp.asarray(xt.float().numpy()).astype(jnp.bfloat16 if wire == torch.bfloat16
+                                                  else jnp.float32)
+    jst, jslots = JV.insert(jst, xj, jnp.int32(x.shape[0]), spill=spill, metric=metric)
+    return jst, np.asarray(jslots), TV.insert(tst, xt, spill=spill, metric=metric).numpy()
+
+
+def _built_plain(rng, tier, K=16, C=32, G=256, n=900, d=128, tomb=60):
+    """A JAX state of a tier without a residual, after two inserts that spill,
+    use the spare and drop rows; plus tombstones. Returns (jax_state, data)."""
+    x = _blobs(rng, n, d)
+    cents = x[rng.choice(n, K, replace=False)] + 0.01
+    jst = JV.empty_state(jnp.asarray(cents), C, G, dtype=PLAIN[tier][0])
+    tst = to_port(jst)
+    slots = []
+    for part in (x[: n // 2], x[n // 2 :]):
+        jst, js, _ = _plain_insert(jst, tst, part, tier)
+        slots.append(js)
+    live = np.concatenate(slots)
+    live = live[live >= 0]
+    jst = JV.delete_slots(jst, jnp.asarray(live[:tomb].astype(np.int32)))
+    return jst, x
 
 
 def _jax_insert(st, x, spill=8, metric="cosine"):
@@ -132,6 +181,35 @@ def test_insert_quant_matches_jax(rng, metric):
     assert_state_equal(tst, jst)
 
 
+@pytest.mark.parametrize("tier", list(PLAIN))
+@pytest.mark.parametrize("metric", ["cosine", "sql2"])
+def test_insert_matches_jax(rng, metric, tier):
+    """``ivf.insert`` on the tiers without a residual, on the same injected
+    centroids: slots, counts, the stored rows or codes and scales exactly,
+    norms of the stored values to rtol 1e-6. Spill, spare and drops
+    included (K*C + G = 768 rows for 900 inserts). Under sql2 one row is
+    all zero (scale 1 on int8); under cosine such a row ties with every cell,
+    and the two packages' top-k break that tie differently."""
+    x = _blobs(rng, 900)
+    if metric == "sql2":
+        x[7] = 0.0
+    cents = x[rng.choice(900, 16, replace=False)] + 0.01
+    jst = JV.empty_state(jnp.asarray(cents), 32, 256, dtype=PLAIN[tier][0])
+    tst = to_port(jst)
+    assert tst.vectors.dtype == PLAIN[tier][1] and tst.residual is None
+    slots = []
+    for part in (x[:450], x[450:]):
+        jst, jslots, tslots = _plain_insert(jst, tst, part, tier, metric=metric)
+        np.testing.assert_array_equal(tslots, jslots)
+        slots.append(tslots)
+    assert int(jst.overflow) > 0 and int(jst.counts[-1]) == 256
+    assert_state_equal(tst, jst)
+    if metric == "sql2":
+        zero = int(slots[0][7])
+        assert zero >= 0 and not bool(tst.vectors[zero].any()) and float(tst.norms[zero]) == 0
+        assert tst.scales is None or float(tst.scales[zero]) == 1.0
+
+
 def test_grow_spare_and_delete_match_jax(rng):
     jst, _, slots = _built(rng)
     tst = to_port(jst)
@@ -170,6 +248,56 @@ def test_eager_query_matches_jax(rng, metric, k):
     np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
     np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
     assert_dists_close(metric, td.numpy(), jd, q)
+
+
+def assert_slots_or_ties(metric, got, want, tst, q, tol=1e-5):
+    """Equal slots, or at each differing rank two picks whose distances to
+    the query, recomputed in f64 from the stored values, are within ``tol``
+    of the metric's scale (1 for cosine, |q|^2 + |x|^2 for l2 / sql2, both
+    compared squared): a near-tie ranked by f32 sums taken in another order."""
+    got, want = np.asarray(got), np.asarray(want)
+    b, r = np.nonzero(got != want)
+    if not len(b):
+        return
+    x = tst.vectors.double()
+    if tst.scales is not None:
+        x = x * tst.scales.double()[:, None]
+    q64 = torch.from_numpy(np.asarray(q, np.float64))
+
+    def d64(slots):
+        v, qq = x[torch.from_numpy(slots)], q64[torch.from_numpy(b)]
+        dot, n2, qn2 = (v * qq).sum(-1), (v * v).sum(-1), (qq * qq).sum(-1)
+        if metric == "cosine":
+            return (1.0 - dot / torch.sqrt(torch.clamp(qn2 * n2, min=1e-30))).numpy(), 1.0
+        return torch.clamp(qn2 + n2 - 2.0 * dot, min=0.0).numpy(), (qn2 + n2).numpy()
+
+    (dg, scale), (dw, _) = d64(got[b, r]), d64(want[b, r])
+    assert (np.abs(dg - dw) <= tol * scale).all(), f"{len(b)} differing ranks are not ties"
+
+
+@pytest.mark.parametrize("tier", list(PLAIN))
+@pytest.mark.parametrize("metric", ["cosine", "l2", "sql2"])
+@pytest.mark.parametrize("k", [10, 128])  # 128 > C: per-probe selection narrower than k
+def test_plain_tier_query_matches_jax(rng, k, metric, tier):
+    """The tiers without a residual at P=4, the spare in use: the eager
+    route, and the probe kernel's route (its plain version on the CPU),
+    against the JAX package's XLA branch; and the exact scan
+    (``brute_force``, norms from the stored values) against its twin."""
+    jst, x = _built_plain(rng, tier)
+    assert int(jst.counts[-1]) > 0
+    tst = to_port(jst)
+    q = x[::30] + 0.05 * rng.standard_normal((30, 128)).astype(np.float32)
+    jd, js, jv = JV.query(jst, jnp.asarray(q), k, metric=metric, num_probes=4, rerank="xla")
+    for rerank in ("eager", "cuda"):
+        td, ts, tv = TV.query(tst, torch.from_numpy(q), k, metric=metric, num_probes=4,
+                              rerank=rerank)
+        np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+        assert_slots_or_ties(metric, ts.numpy(), js, tst, q)
+        np.testing.assert_allclose(td.numpy(), np.asarray(jd), rtol=2e-3, atol=2e-3)
+    jd, js, _ = JV.brute_force(jst, jnp.asarray(q), k, metric=metric)
+    td, ts, _ = TV.brute_force(tst, torch.from_numpy(q), k, metric=metric)
+    assert_slots_or_ties(metric, ts.numpy(), js, tst, q)
+    np.testing.assert_allclose(td.numpy(), np.asarray(jd), rtol=2e-3, atol=2e-3)
 
 
 def test_cuda_rerank_route_on_cpu_matches_eager(rng):
@@ -364,11 +492,21 @@ def test_refine_query_batches_in_chunks(rng, monkeypatch):
 # -- the host index ----------------------------------------------------------------
 
 
-@pytest.mark.parametrize("refine", [4, 2, "scan"])
+#: every IVF slab tier: refined int8 (q8 wire) and the array-wire tiers
+TIERS = {"4": dict(refine=4), "2": dict(refine=2), "scan": dict(refine="scan"),
+         "balanced": dict(dtype="bfloat16", refine=0, num_probes=4),
+         "f32": dict(dtype="float32", refine=0), "int8": dict(dtype="int8", refine=0)}
+
+
+@pytest.mark.parametrize("refine", list(TIERS))
 @pytest.mark.parametrize("rerank", ["auto", "pallas2"])
 def test_ivfindex_matches_jax(rng, monkeypatch, refine, rerank):
     """The same rows, ids and (injected) centroids through both packages'
-    ``IVFIndex``: the same ids, distances within the f32 bound."""
+    ``IVFIndex``, on every tier: the same stored state and ids, distances
+    within the f32 bound. On the array-wire tiers a differing rank must be
+    an f64-verified tie of the query as the index takes it (bf16-rounded
+    where the query wire is bf16): their rows are values, and two f32 sums
+    taken in another order can swap neighbours closer than their rounding."""
     x = _blobs(rng, 3000)
     q = x[::100] + 0.05 * rng.standard_normal((30, 128)).astype(np.float32)
     cents = x[rng.choice(3000, 64, replace=False)] + 0.01
@@ -376,7 +514,7 @@ def test_ivfindex_matches_jax(rng, monkeypatch, refine, rerank):
     monkeypatch.setattr(TIndex, "_train_centroids",
                         lambda self, k, data: torch.from_numpy(cents[:k].copy()))
     ids = [bytes([1 + i // 250, 1 + i % 250]) + b"\x07" * 14 for i in range(3000)]
-    kw = dict(refine=refine, rerank=rerank, num_clusters=64)
+    kw = dict(TIERS[refine], rerank=rerank, num_clusters=64)
     jix = JIndex(dim=128, options=JOptions(**kw))
     tix = TIndex(dim=128, options=TOptions(**kw), device="cpu")
     jix.add(x, ids=list(ids))
@@ -384,11 +522,48 @@ def test_ivfindex_matches_jax(rng, monkeypatch, refine, rerank):
     jix.remove(ids[:25])
     tix.remove(ids[:25])
     assert_state_equal(tix.state, jix.state)
+    qq = torch.from_numpy(q)
+    if tix.options.query_wire_is_bf16():
+        qq = qq.to(torch.bfloat16).float()
     for k in (10, 33):
         want, got = jix.search(q, k), tix.search(q, k)
-        assert [[i for i, _ in r] for r in got] == [[i for i, _ in r] for r in want]
+        if TIERS[refine]["refine"]:  # the q8 tiers: ids exactly
+            assert [[i for i, _ in r] for r in got] == [[i for i, _ in r] for r in want]
+        else:
+            js, ts = jix.search_arrays(q, k)[1], tix.search_arrays(q, k)[1]
+            assert_slots_or_ties(tix.metric, ts, js, tix.state, qq.numpy())
         np.testing.assert_allclose([[d for _, d in r] for r in got],
                                    [[d for _, d in r] for r in want], rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("tier", ["4", "balanced", "f32", "int8"])
+def test_spare_growth_retry_matches_jax(rng, monkeypatch, tier):
+    """A spare too small for the batch, in both packages on the same
+    (injected) centroids: the rows it could not take are retried after the
+    spare grows, as the JAX package retries them (refined int8 re-quantises
+    the f32 rows; the array-wire tiers insert the f32 rows themselves), so
+    both store the same state. 208 rows fill the 4 x 32 cluster rows and
+    overflow the 64-row spare by 16. The JAX index defers the rebuild its
+    policy then asks for, as under its facade: a rebuild re-inserts the
+    stored rows, and the port has no rebuild policy yet."""
+    x = _blobs(rng, 208)
+    cents = x[rng.choice(208, 4, replace=False)] + 0.01
+    monkeypatch.setattr(JIndex, "_train_centroids", lambda self, k, data: jnp.asarray(cents[:k]))
+    monkeypatch.setattr(TIndex, "_train_centroids",
+                        lambda self, k, data: torch.from_numpy(cents[:k].copy()))
+    ids = [bytes([1, 1 + i]) + b"\x09" * 14 for i in range(208)]
+    kw = dict(TIERS[tier], num_clusters=4, cluster_capacity=32, spare_capacity=64)
+    jix = JIndex(dim=128, options=JOptions(**kw))
+    jix.defer_rebuild = True
+    tix = TIndex(dim=128, options=TOptions(**kw), device="cpu")
+    jix.add(x, ids=list(ids))
+    tix.add(x, ids=list(ids))
+    st = tix.state
+    # overflow counts the rows the first attempt dropped; every row is placed
+    assert (st.spare_capacity, int(st.overflow), len(tix)) == (64 + 1024, 16, 208)
+    assert (jix.state.spare_capacity, int(jix.state.overflow)) == (64 + 1024, 16)
+    assert_state_equal(st, jix.state)
+    assert all(tix._id_to_slot._dict[i] == jix._id_to_slot.get(i) for i in ids)
 
 
 def test_ivfindex_rejects_what_jax_rejects():
@@ -400,12 +575,13 @@ def test_ivfindex_rejects_what_jax_rejects():
             JIndex(dim=16, options=JOptions(**options))
         with pytest.raises(exc, match="refine"):
             TIndex(dim=16, options=TOptions(**options), device="cpu")
-    # tiers the JAX package has and the port does not yet
+    # and constructs where it constructs, with the same slab type and wire
     for options in (dict(dtype="int8", refine=0), dict(dtype="bfloat16"),
-                    dict(dtype="float32")):
-        JIndex(dim=16, options=JOptions(**options))
-        with pytest.raises(NotImplementedError, match="queue 1, item 3"):
-            TIndex(dim=16, options=TOptions(**options), device="cpu")
+                    dict(dtype="float32"), dict(refine=4), dict()):
+        jix = JIndex(dim=16, options=JOptions(**options))
+        tix = TIndex(dim=16, options=TOptions(**options), device="cpu")
+        assert str(tix.dtype) == f"torch.{np.dtype(jix.dtype).name}"
+        assert (tix._wal_codec, tix._wire_row_bytes) == (jix._wal_codec, jix._wire_row_bytes)
 
 
 @pytest.mark.parametrize("stored", ["auto", "xla", "pallas", "pallas2"])

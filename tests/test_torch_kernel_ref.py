@@ -2,11 +2,16 @@
 Pallas kernel (run in interpret mode on the CPU, as
 ``tests/test_pallas_ivf.py`` runs it) and against its XLA branch.
 
+Every slab form of the kernel: int8 + residual (``has_scales`` with the
+residual scan), and bf16 / f32 slabs without scales (``has_scales=False``).
+
 Tolerances: ``dots="bf16x2f"`` (split-query bf16 dots) vs the Pallas kernel
 with the same dots — rtol/atol 2e-3 and slot overlap >= 0.97, the bounds of
 ``tests/test_pallas_ivf.py`` for split dots; ``dots="highest"`` (f32 dots)
 vs the JAX XLA branch — rtol/atol 1e-4 and equal slots.
 """
+
+import dataclasses
 
 import jax.numpy as jnp
 import numpy as np
@@ -39,17 +44,24 @@ def to_port(st) -> TV.IVFState:
     return TV.state_from_numpy(arrays)
 
 
-def _state(rng, n=1024, K=16, C=96, d=128, spare=0, tomb=40):
-    """int8 + residual JAX state on clustered data, with tombstones; the
-    blocks are ragged (counts < C)."""
+def _state(rng, n=1024, K=16, C=96, d=128, spare=0, tomb=40, slab="int8res"):
+    """A JAX state on clustered data, with tombstones; the blocks are ragged
+    (counts < C). ``slab``: "int8res" (int8 + residual, host-quantised), or
+    "bf16" / "f32" (no scales: the rows cast by ``ivf.insert``)."""
     centers = rng.standard_normal((8, d)).astype(np.float32)
     x = centers[rng.integers(0, 8, n)] + 0.1 * rng.standard_normal((n, d)).astype(np.float32)
     cents = x[rng.choice(n, K, replace=False)] + 0.01
-    st = JV.empty_state(jnp.asarray(cents), C, spare, dtype=jnp.int8, refine=True)
-    v8, r8, sc, rs = JV.quantise_pair_host(x)
-    st, slots = JV.insert_quant(st, jnp.asarray(v8), jnp.asarray(r8),
-                                jnp.asarray(np.stack([sc, rs], 1)), jnp.int32(n),
-                                spill=8, metric="cosine")
+    if slab == "int8res":
+        st = JV.empty_state(jnp.asarray(cents), C, spare, dtype=jnp.int8, refine=True)
+        v8, r8, sc, rs = JV.quantise_pair_host(x)
+        st, slots = JV.insert_quant(st, jnp.asarray(v8), jnp.asarray(r8),
+                                    jnp.asarray(np.stack([sc, rs], 1)), jnp.int32(n),
+                                    spill=8, metric="cosine")
+    else:
+        dt = jnp.bfloat16 if slab == "bf16" else jnp.float32
+        st = JV.empty_state(jnp.asarray(cents), C, spare, dtype=dt)
+        st, slots = JV.insert(st, jnp.asarray(x).astype(dt), jnp.int32(n), spill=8,
+                              metric="cosine")
     slots = np.asarray(slots)
     st = JV.delete_slots(st, jnp.asarray(slots[:tomb].astype(np.int32)))
     return st, x
@@ -67,9 +79,10 @@ def test_split_bf16_matches_jax_bitwise(rng):
     np.testing.assert_array_equal(tl.numpy(), np.asarray(jl.astype(jnp.float32)))
 
 
+@pytest.mark.parametrize("slab", ["int8res", "bf16"])
 @pytest.mark.parametrize("metric", ["cosine", "l2", "sql2"])
-def test_reference_bf16x2f_matches_pallas_interpret(rng, interp_kernel, metric):
-    st, x = _state(rng)
+def test_reference_bf16x2f_matches_pallas_interpret(rng, interp_kernel, metric, slab):
+    st, x = _state(rng, slab=slab)
     q = _queries(rng, x)
     probes = JV.select_probes(st, jnp.asarray(q), 4, metric).astype(jnp.int32)
     jd, js, jv = PI.ivf_rerank(st, jnp.asarray(q), probes, 10, metric=metric,
@@ -97,8 +110,9 @@ def test_reference_highest_matches_xla_branch(rng, metric):
     np.testing.assert_allclose(td.numpy(), np.asarray(jd), rtol=1e-4, atol=1e-4)
 
 
-def test_reference_highest_matches_pallas_highest(rng, interp_kernel):
-    st, x = _state(rng)
+@pytest.mark.parametrize("slab", ["int8res", "bf16", "f32"])
+def test_reference_highest_matches_pallas_highest(rng, interp_kernel, slab):
+    st, x = _state(rng, slab=slab)
     q = _queries(rng, x, B=16)
     probes = JV.select_probes(st, jnp.asarray(q), 3, "cosine").astype(jnp.int32)  # odd P
     jd, js, jv = PI.ivf_rerank(st, jnp.asarray(q), probes, 10, dots="highest",
@@ -134,9 +148,17 @@ def test_adapter_on_cpu_is_the_plain_version(rng):
 
 
 def test_kernel_refuses_slab_forms_it_lacks():
-    """f32/bf16 slabs are not a form the CUDA kernel takes: it raises (and
-    never hands the work to the plain version)."""
-    st = TV.empty_state(torch.zeros(4, 16), 8, 0, dtype=torch.float32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TR._launch(st, torch.zeros(2, 16), torch.zeros(2, 2, dtype=torch.int64), 5, "cosine")
+    """An f16 slab is not a form the CUDA kernel has: it raises (and never
+    hands the work to the plain version), as it does for a scale-less int8
+    slab or scales beside a value slab."""
+    args = (torch.zeros(2, 16), torch.zeros(2, 2, dtype=torch.int64), 5, "cosine")
+    st = TV.empty_state(torch.zeros(4, 16), 8, 0, dtype=torch.float16)
+    with pytest.raises(NotImplementedError, match="float16 slab has none"):
+        TR._launch(st, *args)
+    st = TV.empty_state(torch.zeros(4, 16), 8, 0, dtype=torch.int8)
+    with pytest.raises(ValueError, match="scales"):
+        TR._launch(dataclasses.replace(st, scales=None), *args)
+    st = TV.empty_state(torch.zeros(4, 16), 8, 0, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="scales"):
+        TR._launch(dataclasses.replace(st, scales=torch.ones(32)), *args)
 

@@ -241,7 +241,8 @@ def test_int8_and_flat_are_refused(tmp_path):
         TL.LSHIndex(dim=8, options=T.IndexOptions(index_type="lsh", dtype="int8"), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         T.Database.create(str(tmp_path / "f.zebra"),
-                          T.DatabaseConfig(dim=8, index=T.IndexOptions(index_type="flat")))
+                          T.DatabaseConfig(dim=8, index=T.IndexOptions(index_type="flat")),
+                          device="cpu")
 
 
 # -- databases crossing between the packages ---------------------------------
@@ -254,6 +255,11 @@ def _cfg(pkg, **opts):
     rebuilds to a background worker, the port runs them inline."""
     return pkg.DatabaseConfig(dim=DIM, index=pkg.IndexOptions(index_type="lsh",
                                                                bucket_capacity=256, **opts))
+
+
+def _cpu(pkg):
+    """The port runs on the card unless asked; the JAX package takes no device."""
+    return {"device": "cpu"} if pkg is T else {}
 
 
 def _data(seed):
@@ -281,7 +287,7 @@ def test_jax_written_lsh_database_opens_in_the_port(tmp_path, opts):
     assert jdb.index._rebuild_reason() is None
     want = jdb.query(queries, 10)
     jdb.close()
-    tdb = T.Database.open(path)
+    tdb = T.Database.open(path, device="cpu")
     assert len(tdb) == 1970 and tdb.index._dev_dim == (1024 if opts.get("rerank") else DIM)
     assert_same_results(tdb.query(queries, 10), want)
 
@@ -290,7 +296,7 @@ def test_jax_written_lsh_database_opens_in_the_port(tmp_path, opts):
 def test_port_written_lsh_database_opens_in_jax(tmp_path, opts):
     base, queries = _data(11)
     path = str(tmp_path / "p.zebra")
-    tdb = T.Database.create(path, _cfg(T, **opts))
+    tdb = T.Database.create(path, _cfg(T, **opts), device="cpu")
     ids = tdb.insert_vectors(base)
     tdb.remove(ids[:30])
     want = tdb.query(queries, 10)
@@ -307,14 +313,14 @@ def test_f32_wal_tail_replays_in_both_directions(tmp_path):
     base, queries = _data(12)
     for writer, reader in ((T, Z), (Z, T)):
         path = str(tmp_path / f"{writer.__name__}.zebra")
-        db = writer.Database.create(path, _cfg(writer))
+        db = writer.Database.create(path, _cfg(writer), **_cpu(writer))
         ids = db.insert_vectors(base[:1500])
         db.save()
         ids += db.insert_vectors(base[1500:])  # logged only
         db.remove(ids[1490:1520])
         assert os.path.getsize(path + ".d/delta.log") > 500 * DIM * 4  # f32 records
         want = db.query(queries, 10)
-        again = reader.Database.open(path)
+        again = reader.Database.open(path, **_cpu(reader))
         assert len(again) == 1970
         assert_same_results(again.query(queries, 10), want)
         for d in (db, again):
@@ -327,11 +333,11 @@ def test_wal_replays_from_scratch_in_both_directions(tmp_path):
     base, queries = _data(13)
     for writer, reader in ((T, Z), (Z, T)):
         path = str(tmp_path / f"s{writer.__name__}.zebra")
-        db = writer.Database.create(path, _cfg(writer))
+        db = writer.Database.create(path, _cfg(writer), **_cpu(writer))
         ids = db.insert_vectors(base)
         db.remove(ids[:10])
         want = db.query(queries, 10)
-        again = reader.Database.open(path)
+        again = reader.Database.open(path, **_cpu(reader))
         assert len(again) == 1990
         assert_same_results(again.query(queries, 10), want)
         for d in (db, again):

@@ -1,28 +1,36 @@
 // IVF probe re-rank for Hopper (sm_90a): per query, score every live row of
-// its P probed cluster blocks against the int8 slab (plus the int8 residual
-// slab when given), build the distance and keep the top k.
+// its P probed cluster blocks, build the distance and keep the top k. The
+// slab is int8 codes with per-row scales (plus the int8 residual slab when
+// given), or bf16 / f32 values without scales.
 //
 // Replaces zebra_tpu/ops/pallas_ivf.py::_kernel_factory (the Pallas wave
-// kernel, residual-scan form), reached through the adapter
-// zebra_tpu_torch/ops/ivf_rerank.py::ivf_rerank.
+// kernel) in every form it has: has_scales with and without the residual
+// scan, and has_scales=False over bf16 / f32 slabs; reached through the
+// adapter zebra_tpu_torch/ops/ivf_rerank.py::ivf_rerank.
 //
-// Bound: device-memory reads. Each probed row costs D bytes of codes per slab
-// (2 bytes per element with the residual), so a batch reads at most
-// B*P*C*D*2 bytes; rows past counts[c] and tombstoned rows are skipped, so
-// the real traffic is the occupied share of that. The design streams every
-// row once with 16-byte coalesced loads (one warp per row, each lane a
-// 16-byte chunk; the lane's slice of q lives in registers), keeps the P*C
-// candidate distances in shared memory and selects the top k there with k
-// block-wide (distance, position) argmin rounds, so nothing but the [B, k]
-// result goes back to device memory.
+// Bound: device-memory reads. Each probed row costs D * itemsize bytes per
+// slab (int8: D, plus D more with the residual; bf16: 2D; f32: 4D), so a
+// batch reads at most B*P*C*D*itemsize bytes; rows past counts[c] and
+// tombstoned rows are skipped unread, so the real traffic is the occupied
+// share of that. The design streams every row once with 16-byte coalesced
+// loads (one warp per row, each lane a 16-byte chunk; the lane's slice of q
+// lives in registers), keeps the P*C candidate distances in shared memory
+// and selects the top k there with k block-wide (distance, position) argmin
+// rounds, so nothing but the [B, k] result goes back to device memory. Each
+// probed block is read once per query that probes it (the cluster-major
+// redesign that reads it once for all its queries is later work).
 //
 // Contract (the adapter's, pallas_ivf.py:617-686):
-//   dot    = scale*<q, v8> + rscale*<q, r8>    (f32 dots: the "highest" grade)
+//   dot    = scale*<q, v8> + rscale*<q, r8> on int8 slabs (the residual term
+//            only with the residual slab), <q, v> on bf16 / f32 slabs
+//            (f32 dots: the "highest" grade)
 //   cosine = 1 - dot * rsqrt(max(|q|^2 n2, 1e-30)), and 1 where |q|^2 n2 == 0
 //   l2     = sqrt(max(|q|^2 + n2 - 2 dot, 0)); sql2 the same without sqrt
 //   invalid rows -> +inf with slot -1; equal distances -> lowest position of
 //   the flattened [P*C] probe axis; k <= 128.
 // Row offsets are 64-bit: S*D passes 2^31 at the 4M x 768 capacity scale.
+
+#include <type_traits>
 
 #include "rerank_common.cuh"
 
@@ -30,16 +38,19 @@ namespace {
 
 using namespace zt;
 
-// NCH > 0: lane l owns the 16-element chunks l + 32*i (i < NCH) and loads
-// them as int4 (see rerank_common.cuh). NCH == 0: any D, byte loads.
-template <int NCH>
+// E: the slab element type; int8 codes carry scales (and may carry the
+// residual), bf16 / f32 rows are values. NCH > 0: lane l owns the 16-byte
+// chunks l + 32*i (i < NCH) and loads them whole (see rerank_common.cuh).
+// NCH == 0: any D, element loads.
+template <class E, int NCH>
 __global__ void __launch_bounds__(kThreads) ivf_rerank_kernel(
     const float* __restrict__ q, const int32_t* __restrict__ probes,
-    const int32_t* __restrict__ counts, const int8_t* __restrict__ vec,
+    const int32_t* __restrict__ counts, const typename E::T* __restrict__ vec,
     const int8_t* __restrict__ res, const float* __restrict__ scales,
     const float* __restrict__ rscales, const float* __restrict__ norms,
     const uint8_t* __restrict__ valid, float* __restrict__ out_d,
     int64_t* __restrict__ out_s, int P, int C, int D, int k, int metric) {
+  constexpr bool kCodes = std::is_same_v<E, ElemI8>;
   extern __shared__ float4 smem4[];
   float* qs = reinterpret_cast<float*>(smem4);  // [D] the query
   float* dist = qs + D;                         // [P*C] candidate distances
@@ -59,8 +70,8 @@ __global__ void __launch_bounds__(kThreads) ivf_rerank_kernel(
   }
   const float qn2 = block_sum(part);
 
-  float qr[NCH > 0 ? NCH : 1][ElemI8::kVec];
-  load_query_chunks<ElemI8, NCH>(qs, D, lane, qr);
+  float qr[NCH > 0 ? NCH : 1][E::kVec];
+  load_query_chunks<E, NCH>(qs, D, lane, qr);
 
   for (int p = 0; p < P; ++p) {
     const int c = pb[p];
@@ -73,10 +84,12 @@ __global__ void __launch_bounds__(kThreads) ivf_rerank_kernel(
         if (lane == 0) dist[pos] = kBig;
         continue;
       }
-      const int8_t* vrow = vec + slot * D;
-      const int8_t* rrow = res != nullptr ? res + slot * D : nullptr;
+      const typename E::T* vrow = vec + slot * D;
       float hi = 0.f, lo = 0.f;
-      if constexpr (NCH > 0) {
+      if constexpr (!kCodes) {
+        hi = lane_row_dot<E, NCH>(vrow, D, lane, qr, qs);
+      } else if constexpr (NCH > 0) {
+        const int8_t* rrow = res != nullptr ? res + slot * D : nullptr;
         // the two slabs' chunks load side by side: twice the bytes in flight
 #pragma unroll
         for (int i = 0; i < NCH; ++i) {
@@ -88,14 +101,17 @@ __global__ void __launch_bounds__(kThreads) ivf_rerank_kernel(
         }
       } else {
         hi = lane_row_dot<ElemI8, 0>(vrow, D, lane, qr, qs);
-        if (rrow != nullptr) lo = lane_row_dot<ElemI8, 0>(rrow, D, lane, qr, qs);
+        if (res != nullptr) lo = lane_row_dot<ElemI8, 0>(res + slot * D, D, lane, qr, qs);
       }
       hi = warp_sum(hi);
-      lo = warp_sum(lo);
+      if constexpr (kCodes) lo = warp_sum(lo);
       if (lane == 0) {
-        // dequantise after the dot: <q, s*v8 + r*r8> = s<q,v8> + r<q,r8>
-        float dot = hi * scales[slot];
-        if (res != nullptr) dot += lo * rscales[slot];
+        float dot = hi;
+        if constexpr (kCodes) {
+          // dequantise after the dot: <q, s*v8 + r*r8> = s<q,v8> + r<q,r8>
+          dot *= scales[slot];
+          if (res != nullptr) dot += lo * rscales[slot];
+        }
         const float n2 = norms[slot];
         float d;
         if (metric == 0) {
@@ -120,48 +136,72 @@ __global__ void __launch_bounds__(kThreads) ivf_rerank_kernel(
   }
 }
 
-template <int NCH>
-void launch(dim3 grid, size_t smem, cudaStream_t stream, const float* q,
-            const int32_t* probes, const int32_t* counts, const int8_t* vec,
-            const int8_t* res, const float* scales, const float* rscales,
-            const float* norms, const uint8_t* valid, float* out_d,
-            int64_t* out_s, int P, int C, int D, int k, int metric) {
+struct Args {
+  const float* q;
+  const int32_t* probes;
+  const int32_t* counts;
+  const void* vec;
+  const int8_t* res;
+  const float* scales;
+  const float* rscales;
+  const float* norms;
+  const uint8_t* valid;
+  float* out_d;
+  int64_t* out_s;
+  int B, P, C, D, k, metric;
+  cudaStream_t stream;
+};
+
+template <class E, int NCH>
+void launch(const Args& a) {
+  const size_t smem = sizeof(float) * (static_cast<size_t>(a.D) + static_cast<size_t>(a.P) * a.C);
   if (smem > 48 * 1024)
-    cudaFuncSetAttribute(ivf_rerank_kernel<NCH>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         static_cast<int>(smem));
-  ivf_rerank_kernel<NCH><<<grid, kThreads, smem, stream>>>(
-      q, probes, counts, vec, res, scales, rscales, norms, valid, out_d, out_s,
-      P, C, D, k, metric);
+    cudaFuncSetAttribute(ivf_rerank_kernel<E, NCH>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  ivf_rerank_kernel<E, NCH><<<a.B, kThreads, smem, a.stream>>>(
+      a.q, a.probes, a.counts, static_cast<const typename E::T*>(a.vec), a.res, a.scales,
+      a.rscales, a.norms, a.valid, a.out_d, a.out_s, a.P, a.C, a.D, a.k, a.metric);
+}
+
+// The chunk count lane_chunks picks (6 and 8 occur for bf16 / f32 rows: f32
+// at D=768 is 192 chunks, 6 a lane); a residual slab that cannot take the
+// codes' count sends both to the element path.
+template <class E>
+void dispatch(const Args& a) {
+  int nch = lane_chunks<E>(a.vec, a.D, a.D);
+  if (a.res != nullptr && lane_chunks<ElemI8>(a.res, a.D, a.D) != nch) nch = 0;
+  switch (nch) {
+    case 1: launch<E, 1>(a); break;
+    case 2: launch<E, 2>(a); break;
+    case 3: launch<E, 3>(a); break;
+    case 4: launch<E, 4>(a); break;
+    case 6: if constexpr (E::kVec <= 8) launch<E, 6>(a); break;
+    case 8: if constexpr (E::kVec <= 8) launch<E, 8>(a); break;
+    default: launch<E, 0>(a); break;
+  }
 }
 
 }  // namespace
 
-// Plain C entry point (loaded with ctypes). res/rscales may be null (no
-// residual slab). metric: 0 cosine, 1 l2, 2 sql2. Launches on `stream` and
+// Plain C entry point (loaded with ctypes). dtype: 0 f32 slab, 1 bf16 slab
+// (raw 16-bit patterns), 2 int8 slab (scales required). res/rscales may be
+// null (no residual slab; always null for f32 / bf16), scales is null for
+// f32 / bf16. metric: 0 cosine, 1 l2, 2 sql2. Launches on `stream` and
 // returns cudaGetLastError() (0 = launched).
 extern "C" int zt_ivf_rerank(const float* q, const int32_t* probes,
-                             const int32_t* counts, const int8_t* vec,
+                             const int32_t* counts, const void* vec, int dtype,
                              const int8_t* res, const float* scales,
                              const float* rscales, const float* norms,
                              const uint8_t* valid, float* out_d, int64_t* out_s,
                              int B, int P, int C, int D, int k, int metric,
                              void* stream) {
-  const size_t smem = sizeof(float) * (static_cast<size_t>(D) + static_cast<size_t>(P) * C);
-  int nch = lane_chunks<ElemI8>(vec, D, D);
-  if (res != nullptr && lane_chunks<ElemI8>(res, D, D) != nch) nch = 0;
-  const dim3 grid(B);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define ZT_LAUNCH(N)                                                          \
-  launch<N>(grid, smem, s, q, probes, counts, vec, res, scales, rscales,      \
-            norms, valid, out_d, out_s, P, C, D, k, metric)
-  switch (nch) {
-    case 1: ZT_LAUNCH(1); break;
-    case 2: ZT_LAUNCH(2); break;
-    case 3: ZT_LAUNCH(3); break;
-    case 4: ZT_LAUNCH(4); break;
-    default: ZT_LAUNCH(0); break;
-  }
-#undef ZT_LAUNCH
+  const Args a{q, probes, counts, vec, res, scales, rscales, norms, valid, out_d, out_s,
+               B, P, C, D, k, metric, static_cast<cudaStream_t>(stream)};
+  if (dtype == 2)
+    dispatch<ElemI8>(a);
+  else if (dtype == 1)
+    dispatch<ElemBF16>(a);
+  else
+    dispatch<ElemF32>(a);
   return static_cast<int>(cudaGetLastError());
 }

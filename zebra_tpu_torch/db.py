@@ -4,14 +4,16 @@ only so far).
 The same manifest (``<path>``), index snapshot (``<path>.d/index/``) and
 write-ahead log (``<path>.d/delta.log``) as the JAX package, so a database
 written by one package opens in the other. With ``durability="full"`` (the
-default) every insert span is logged as an fsync'd record (q8 for IVF, f32 or
-bf16 for LSH) BEFORE the index mutation runs, and every remove is logged before it tombstones; ``open``
-replays the log onto the last snapshot (idempotent by id).
+default) every insert span is logged as an fsync'd record BEFORE the index
+mutation runs (q8 for the refined int8 tier, bf16 where the wire is bf16 — the
+bf16 slab and plain int8 —, f32 otherwise), and every remove is logged before
+it tombstones; ``open`` replays the log onto the last snapshot (idempotent by
+id).
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP.md
-entry, queue 1): documents and blobs with their embedding models,
-``deduplicate`` (needs ``ops/rowhash``), the background log fold and retrain
-workers, and the CLI.
+entry, queue 1): documents and blobs with their embedding models and
+``model_status``, ``deduplicate`` (needs ``ops/rowhash``), the pipelined
+``query_stream``, the background log fold and retrain workers, and the CLI.
 """
 
 from __future__ import annotations
@@ -168,12 +170,12 @@ class Database:
     def _wal_callback(self, ids: list[bytes], vectors: np.ndarray):
         """Per-span write-ahead hook for ``index.add``: the span's record is
         appended and fsync'd before the span's insert runs. A quantised wire
-        (IVF) hands over its q8 parts; an array wire (LSH) logs the span's
-        rows as exact f32, or bf16 for a bf16 slab (lossless for what it
-        stores)."""
+        (refined int8) hands over its q8 parts; an array wire logs the span's
+        rows in the index's ``_wal_codec``: bf16 where the wire is bf16
+        (lossless for what it stores), else exact f32."""
         if self.config.durability != "full":
             return None
-        bf16 = getattr(self.index, "_wal_codec", "f32") == "bf16"
+        bf16 = self.index._wal_codec == "bf16"
 
         def cb(span, parts):
             start, count = span
@@ -250,6 +252,12 @@ class Database:
 
     def query_vectors(self, vectors, number_of_results: int = 1):
         _not_ported("query_vectors", "ROADMAP.md queue 1, documents and blobs")
+
+    def query_stream(self, batches, number_of_results: int = 10):
+        _not_ported("query_stream", "ROADMAP.md queue 1, pipelined staging")
+
+    def model_status(self) -> dict:
+        _not_ported("model_status", "ROADMAP.md queue 1, documents and blobs")
 
     def deduplicate(self) -> None:
         _not_ported("deduplicate", "ROADMAP.md queue 1, deduplicate/rowhash")

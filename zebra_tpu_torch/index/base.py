@@ -6,7 +6,7 @@ rebuilds (a backend's ``_rebuild_reason`` checked after every add and remove)
 and the snapshot format (``index.json`` meta + ``arrays.npz``, the same files
 the JAX package writes). Inserts run span by span with no pipelining yet
 (ROADMAP.md queue 1, pipelined staging); rebuilds run inline, never on a
-background worker (queue 1, item 5).
+background worker (queue 1, item 8).
 """
 
 from __future__ import annotations
@@ -27,10 +27,20 @@ BATCH = 65536
 _MIN_BATCH = 256
 
 _ZERO_ID = b"\x00" * 16
+_PIPELINED = ("the pipelined search surface (search_submit / search_collect / search_stream) "
+              "is not ported to the torch package yet (ROADMAP.md queue 1, pipelined staging)")
 
 
 def default_device() -> str:
-    return "cuda" if torch.cuda.is_available() else "cpu"
+    """The device an index lives on when the caller names none: the CUDA
+    card. Raises when there is none, rather than running on the CPU
+    unasked."""
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available: the port runs on the card unless asked "
+            "otherwise; pass device='cpu' for a CPU run"
+        )
+    return "cuda"
 
 
 class SlotIdArena:
@@ -108,13 +118,13 @@ class IdSlotMap:
 class BaseVectorIndex:
     """Host-side index facade: id maps, batching, persistence.
 
-    Subclasses implement ``_fresh_state``, ``_stage_span``,
-    ``_insert_batch_dev``, ``_resolve_failed``, ``_delete_slots_device``,
-    ``_query_device``, ``_snapshot_arrays`` and ``_restore_arrays``; the
-    rebuild policy hooks (``_rebuild_reason``, ``_pre_rebuild``,
-    ``_reset_alloc_mirrors``) and the snapshot meta hooks
-    (``_meta_extra``, ``_apply_meta_extra``, ``_after_restore``) are
-    optional.
+    Subclasses implement ``_fresh_state``, ``_insert_batch_dev``,
+    ``_resolve_failed``, ``_delete_slots_device``, ``_query_device``,
+    ``_snapshot_arrays`` and ``_restore_arrays``; the array wire
+    (``_stage_span``) may be replaced; the rebuild policy hooks
+    (``_rebuild_reason``, ``_pre_rebuild``, ``_reset_alloc_mirrors``) and the
+    snapshot meta hooks (``_meta_extra``, ``_apply_meta_extra``,
+    ``_after_restore``) are optional.
     """
 
     _BACKEND: str | None = None
@@ -223,6 +233,53 @@ class BaseVectorIndex:
         out = np.zeros((*arr.shape[:-1], self._dev_dim), dtype=np.float32)
         out[..., : arr.shape[-1]] = arr
         return out
+
+    @property
+    def dtype(self) -> torch.dtype:
+        """The slab's element type."""
+        return {"int8": torch.int8, "bfloat16": torch.bfloat16}.get(self.options.dtype,
+                                                                     torch.float32)
+
+    @property
+    def _wire_dtype(self) -> torch.dtype:
+        """Host -> device staging type of an array wire: bf16 for a bf16 slab
+        and for plain int8 (quantised on the device from the bf16 rows), f32
+        otherwise. Refined int8 reports f32 (as the JAX package does); its
+        wire is host-quantised (``IVFIndex._quant_wire``)."""
+        o = self.options
+        if o.dtype == "bfloat16" or (o.dtype == "int8" and not o.refine_enabled()):
+            return torch.bfloat16
+        return torch.float32
+
+    @property
+    def _wal_codec(self) -> str:
+        """Write-ahead record encoding: "bf16" where the wire is bf16 (lossless
+        for what the index stores), else exact "f32"."""
+        return "bf16" if self._wire_dtype == torch.bfloat16 else "f32"
+
+    @property
+    def _wire_row_bytes(self) -> int:
+        """Host -> device bytes per staged row."""
+        return self._dev_dim * self._wire_dtype.itemsize
+
+    def _stage_span(self, vectors, span):
+        """One span on the device at the stored width: a slice of a device
+        source (a rebuild's rows), or host rows zero-padded, cast to the wire
+        type on the host and shipped. A host span's f32 / bf16 write-ahead
+        record is written after its copy is queued and before its insert."""
+        start, count = span
+        if isinstance(vectors, torch.Tensor):
+            return vectors[start : start + count]
+        batch = self._ship_rows(vectors[start : start + count], self._wire_dtype)
+        if self._wal_cb is not None:
+            self._wal_cb(span, None)
+        return batch
+
+    def _ship_rows(self, rows, dtype: torch.dtype) -> torch.Tensor:
+        """Host rows zero-padded to the stored width, cast to ``dtype`` on
+        the host and copied to the device."""
+        rows = self._pad_dim(np.ascontiguousarray(rows, dtype=np.float32))
+        return torch.from_numpy(rows).to(dtype).to(self.device)
 
     def _span_width(self) -> int:
         return int(self._span_rows) if self._span_rows else BATCH
@@ -334,6 +391,15 @@ class BaseVectorIndex:
         self._insert_batches(data, ids)
 
     # -- search -----------------------------------------------------------------
+
+    def search_submit(self, queries, k: int, exact: bool = False):
+        raise NotImplementedError(_PIPELINED)
+
+    def search_collect(self, token):
+        raise NotImplementedError(_PIPELINED)
+
+    def search_stream(self, batches, k: int, exact: bool = False):
+        raise NotImplementedError(_PIPELINED)
 
     def search(self, queries: np.ndarray, k: int, exact: bool = False):
         """Per-query ``[(id, distance), ...]`` sorted ascending."""

@@ -32,6 +32,7 @@ from zebra_tpu_torch.index.ivf import _wrap32
 from zebra_tpu_torch.ops import distances as D
 from zebra_tpu_torch.ops import hashing as H
 from zebra_tpu_torch.ops import topk as TK
+from zebra_tpu_torch.storage.snapshots import slab_from_np
 
 #: out-of-range sentinel (buckets.OOB): dropped scatter targets, pad keys
 OOB = 2**30
@@ -113,14 +114,7 @@ def state_from_numpy(arrays, device="cpu", dtype=None) -> LSHState:
     def t(name):
         return torch.from_numpy(np.array(arrays[name])).to(device)
 
-    vec = np.array(arrays["vectors"])
-    if vec.dtype == np.uint16 or dtype == torch.bfloat16:
-        if vec.dtype != np.uint16:  # f32 values into a bf16 slab
-            vectors = torch.from_numpy(vec.astype(np.float32)).to(device).to(torch.bfloat16)
-        else:
-            vectors = torch.from_numpy(vec.view(np.int16)).to(device).view(torch.bfloat16)
-    else:
-        vectors = torch.from_numpy(vec).to(device).to(dtype or torch.float32)
+    vectors = slab_from_np(arrays["vectors"], device, dtype)
     return LSHState(
         planes=t("planes").float(), consts=t("consts").float(), buckets=t("buckets").int(),
         counts=t("counts").int(), vectors=vectors, norms=t("norms").float(),

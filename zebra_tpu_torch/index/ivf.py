@@ -21,6 +21,7 @@ import torch
 
 from zebra_tpu_torch.ops import distances as D
 from zebra_tpu_torch.ops import topk as TK
+from zebra_tpu_torch.storage.snapshots import slab_from_np
 
 #: f32 reciprocal of 127 — int8 quantisation multiplies by it (as the JAX
 #: package does on host and device, which keeps the two bitwise equal)
@@ -104,7 +105,9 @@ def empty_state(centroids: torch.Tensor, cluster_capacity: int, spare_capacity: 
 
 def state_from_numpy(arrays, device="cpu") -> IVFState:
     """An :class:`IVFState` from numpy arrays named as its fields — a JAX
-    state's leaves, or the members of an index snapshot."""
+    state's leaves, or the members of an index snapshot (a bf16 slab arrives
+    as uint16 bit patterns or as ``ml_dtypes`` bf16; members a tier lacks are
+    absent)."""
 
     def t(name):
         if name not in arrays:
@@ -113,9 +116,9 @@ def state_from_numpy(arrays, device="cpu") -> IVFState:
 
     return IVFState(
         centroids=t("centroids").float(), counts=t("counts").int(),
-        vectors=t("vectors"), norms=t("norms"), valid=t("valid").bool(),
-        overflow=t("overflow").int(), scales=t("scales"), residual=t("residual"),
-        rscales=t("rscales"), ccap=int(np.asarray(arrays["ccap"])),
+        vectors=slab_from_np(arrays["vectors"], device), norms=t("norms"),
+        valid=t("valid").bool(), overflow=t("overflow").int(), scales=t("scales"),
+        residual=t("residual"), rscales=t("rscales"), ccap=int(np.asarray(arrays["ccap"])),
     )
 
 
@@ -238,6 +241,41 @@ def quantise_pair_host(x: np.ndarray, span: int = QUANT_SPAN):
         scale[s : s + span] = sc
         rscale[s : s + span] = rs
     return v8, r8, scale, rscale
+
+
+def insert(state: IVFState, x: torch.Tensor, spill: int = 4, metric: str = "sql2") -> torch.Tensor:
+    """Insert a batch of rows (f32, or bf16 from the half-width wire) into a
+    state without a residual slab, in place (``zebra_tpu/index/ivf.py:266-340``).
+
+    An int8 slab stores the per-row symmetric quantisation, ``scale = absmax
+    / 127`` (1 for an all-zero row) and codes ``round(x / scale)`` (half to
+    even) clipped to +-127; a bf16 / f32 slab stores the cast. Placement uses
+    the rows as given; ``norms`` hold the squared norm of the STORED value
+    (dequantised or rounded), so re-rank distances are exact w.r.t. the slab.
+
+    Returns slots ``[n]`` int64 (-1 = dropped: the spare was full too).
+    """
+    if state.residual is not None:
+        raise ValueError("a residual-bearing state takes host-quantised rows (insert_quant)")
+    x32 = x.float()
+    slots, counts, dropped = _place_rows(state, x32, spill, metric)
+    ok = slots >= 0
+    w = slots[ok]
+    if state.vectors.dtype == torch.int8:
+        absmax = x32.abs().amax(-1)
+        scale = torch.where(absmax > 0, absmax * float(_INV127), torch.ones_like(absmax))
+        xd = torch.clamp(torch.round(x32 / scale[:, None]), -127, 127).to(torch.int8)
+        xs32 = xd.float() * scale[:, None]
+        state.scales.index_copy_(0, w, scale[ok])
+    else:
+        xd = x32.to(state.vectors.dtype)
+        xs32 = xd.float()
+    state.counts = counts
+    state.vectors.index_copy_(0, w, xd[ok])
+    state.norms.index_copy_(0, w, (xs32 * xs32).sum(-1)[ok])
+    state.valid[w] = True
+    state.overflow += dropped
+    return slots
 
 
 def insert_quant(state: IVFState, v8: torch.Tensor, r8: torch.Tensor,

@@ -1,15 +1,21 @@
 """Host orchestration of the IVF backend (port of ``zebra_tpu/index/ivf_host.py``).
 
 Sizing (the same formulas, so a database sizes identically in both
-packages), the cold build (train k-means on a coarse sample of the leading
-spans, then allocate, then insert), the host-quantised q8 wire, spare growth
-on overflow, the device query and the snapshot arrays. The port carries the
-refined-int8 tier (int8 coarse slab + int8 residual) in both its query modes:
-``refine="scan"`` — the library default, the residual streamed through the
-probe kernel — and ``refine=N``, an oversampled scan of the coarse slab alone
-followed by the gather-refine pass (``ivf._refine_topk``). The f32/bf16 tiers,
-plain int8 (``refine=0``) and the rebuild/compaction/retrain policy are not
-ported yet (ROADMAP.md queue 1).
+packages), the cold build (train k-means on a sample of the leading spans,
+then allocate, then insert), the two wires, spare growth on overflow, the
+device query and the snapshot arrays. Every slab tier of the JAX package:
+
+* refined int8 (int8 coarse slab + int8 residual) ships host-quantised
+  ``(v8, r8, [scale, rscale])`` (the q8 wire and WAL record), in both query
+  modes: ``refine="scan"`` — the library default, the residual streamed
+  through the probe kernel — and ``refine=N``, an oversampled scan of the
+  coarse slab alone followed by the gather-refine pass (``ivf._refine_topk``);
+* the bf16 slab (``IndexOptions.tier("balanced")``), the f32 slab and plain
+  int8 (``refine=0``) ship rows on the base's array wire (bf16, f32 and bf16
+  respectively) and ``ivf.insert`` casts or quantises them on the device.
+
+The rebuild/compaction/retrain policy is not ported yet (ROADMAP.md queue 1,
+item 8).
 """
 
 from __future__ import annotations
@@ -103,12 +109,6 @@ class IVFIndex(BaseVectorIndex):
                 "refine stores an int8 quantisation residual and needs "
                 "dtype='int8' (f32/bf16 slabs have no residual to refine)"
             )
-        if not self.options.refine_enabled():
-            raise NotImplementedError(
-                f"the torch port carries the int8 + residual tiers only "
-                f"(dtype={self.options.dtype!r}, refine={r!r}); the f32/bf16 tiers "
-                "and plain int8 (refine=0) are ROADMAP.md queue 1, item 3"
-            )
         # an explicit "pallas" / "pallas2" stores rows at the next multiple of
         # 128 columns (the JAX package's DMA lane unit), zero-padded: kept so
         # that snapshots of such a database open in either package
@@ -118,6 +118,22 @@ class IVFIndex(BaseVectorIndex):
         #: host mirrors of slot occupancy (a non-empty spare costs no sync)
         self._used_slots = 0
         self._spare_used = 0
+
+    @property
+    def _quant_wire(self) -> bool:
+        """Refined int8 quantises on the host and ships the int8 pair and its
+        scales; every other tier ships rows on the base's array wire."""
+        return self.options.refine_enabled() and self.options.dtype == "int8"
+
+    @property
+    def _wal_codec(self) -> str:
+        return "q8" if self._quant_wire else super()._wal_codec
+
+    @property
+    def _wire_row_bytes(self) -> int:
+        if self._quant_wire:
+            return 2 * self._dev_dim + 8  # the int8 pair and two f32 scales
+        return super()._wire_row_bytes
 
     # -- build --------------------------------------------------------------------
 
@@ -155,14 +171,16 @@ class IVFIndex(BaseVectorIndex):
         cents = self._train_centroids(k, data)
         return V.empty_state(
             cents, resolved_capacity(self.options, n_hint, k, dim=self._dev_dim),
-            resolved_spare(self.options, n_hint), dtype=torch.int8, refine=True,
+            resolved_spare(self.options, n_hint), dtype=self.dtype,
+            refine=self.options.refine_enabled(),
         )
 
     def _cold_build(self, vectors, ids) -> bool:
-        """Bulk first build: quantise + log the leading spans, train k-means
-        on their coarse bf16 reconstruction (the JAX package's sample: the
-        first ``per`` rows of each of ``train_len`` spans), THEN allocate the
-        slab, then insert every span (the staged ones unchanged)."""
+        """Bulk first build: stage + log the leading spans, train k-means on
+        their leading rows (the JAX package's sample: the first ``per`` rows
+        of each of ``train_len`` spans, see :meth:`_staged_rows`), THEN
+        allocate the slab, then insert every span (the staged ones
+        unchanged)."""
         n = vectors.shape[0]
         if n < 2 * BATCH:
             return False
@@ -173,27 +191,39 @@ class IVFIndex(BaseVectorIndex):
         train_len = max(min(4, len(spans)), min(len(spans), need))
         per = max(min(target // train_len, spans[0][1]), 1)
         staged = [self._stage_span(vectors, spans[i]) for i in range(train_len)]
-        sample = torch.cat([
-            # int8 -> bf16 casts are exact; the product rounds to bf16
-            v8[: min(per, sp[1])].to(torch.bfloat16)
-            * qs[: min(per, sp[1]), 0, None].to(torch.bfloat16)
-            for (v8, _r8, qs), sp in zip(staged, spans)
-        ])
+        sample = torch.cat([self._staged_rows(b, min(per, sp[1]))
+                            for b, sp in zip(staged, spans)])
         cents = self._train_centroids(k, sample)
         del sample
         self.state = V.empty_state(
             cents, resolved_capacity(self.options, n, k, dim=self._dev_dim),
-            resolved_spare(self.options, n), dtype=torch.int8, refine=True,
+            resolved_spare(self.options, n), dtype=self.dtype,
+            refine=self.options.refine_enabled(),
         )
         self._insert_batches(vectors, ids, staged=staged)
         return True
 
     # -- insert ---------------------------------------------------------------------
 
+    @staticmethod
+    def _staged_rows(staged, rows: int) -> torch.Tensor:
+        """The leading ``rows`` of one staged span as k-means sample rows: the
+        array wire's rows as shipped (bf16 or f32), or the quantised wire's
+        coarse reconstruction rounded to bf16 (int8 -> bf16 casts are exact;
+        the product rounds)."""
+        if isinstance(staged, tuple):
+            v8, _r8, qs = staged
+            return v8[:rows].to(torch.bfloat16) * qs[:rows, 0, None].to(torch.bfloat16)
+        return staged[:rows]
+
     def _stage_span(self, vectors, span):
-        """Quantise one span on the host (or slice the caller's pre-quantised
-        parts — WAL replay), write its q8 WAL record (fsync'd before the
-        insert runs), and ship ``(v8, r8, [scale, rscale])`` to the device."""
+        """Quantised wire: quantise one span on the host (or slice the
+        caller's pre-quantised parts — WAL replay), write its q8 WAL record
+        (fsync'd before the insert runs), and ship ``(v8, r8, [scale,
+        rscale])`` to the device. The other tiers take the base's array
+        wire."""
+        if not self._quant_wire:
+            return super()._stage_span(vectors, span)
         start, count = span
         if self._prequant is not None:
             parts = tuple(p[start : start + count] for p in self._prequant)
@@ -217,21 +247,32 @@ class IVFIndex(BaseVectorIndex):
 
     def _insert_batch_dev(self, batch) -> np.ndarray:
         # cells are chosen with the query's probe metric (the two must agree)
-        slots = V.insert_quant(self.state, *batch, spill=self.options.spill,
-                               metric=self.metric)
-        return slots.cpu().numpy()
+        kw = dict(spill=self.options.spill, metric=self.metric)
+        if isinstance(batch, tuple):  # the quantised wire
+            return V.insert_quant(self.state, *batch, **kw).cpu().numpy()
+        return V.insert(self.state, batch, **kw).cpu().numpy()
+
+    def _retry_batch(self, rows: np.ndarray):
+        """Rows of a spare-growth retry, as the JAX package stages them
+        (``zebra_tpu/index/ivf_host.py:650-669``): refined int8 re-quantises
+        the same f32 rows, which reproduces the logged q8 codes bitwise; the
+        array-wire tiers insert the f32 rows themselves, not their wire
+        values (for plain int8 that quantises values other than those its
+        bf16 WAL record holds: ROADMAP.md queue 3)."""
+        if self._quant_wire:
+            return self._ship_quant(V.quantise_pair_host(rows))
+        return self._ship_rows(rows, torch.float32)
 
     def _resolve_failed(self, rows: np.ndarray) -> np.ndarray:
         """Rows the spare could not take: double the spare (slot numbering
-        unchanged) and retry. Re-quantising the same f32 rows reproduces the
-        logged codes bitwise."""
+        unchanged) and retry."""
         out = np.full(rows.shape[0], -1, dtype=np.int64)
         pending = np.arange(rows.shape[0])
         for _ in range(_MAX_GROWS):
             logger.info("ivf: %d vectors overflow into a grown spare (%d -> %d rows)",
                         len(pending), self.state.spare_capacity, 2 * self.state.spare_capacity)
             self.state = V.grow_spare(self.state)
-            slots = self._insert_batch_dev(self._ship_quant(V.quantise_pair_host(rows[pending])))
+            slots = self._insert_batch_dev(self._retry_batch(rows[pending]))
             out[pending] = slots
             pending = pending[slots < 0]
             if not len(pending):
@@ -272,8 +313,10 @@ class IVFIndex(BaseVectorIndex):
     # -- persistence ---------------------------------------------------------------------
 
     def _snapshot_arrays(self) -> dict:
+        """The state's members; a tier without scales or a residual writes
+        none of those (as the JAX package does)."""
         st = self.state
-        return {
+        arrays = {
             "centroids": st.centroids,
             "counts": st.counts,
             "vectors": st.vectors,
@@ -285,6 +328,7 @@ class IVFIndex(BaseVectorIndex):
             "residual": st.residual,
             "rscales": st.rscales,
         }
+        return {name: a for name, a in arrays.items() if a is not None}
 
     def _restore_arrays(self, z) -> None:
         self.state = V.state_from_numpy(z, device=self.device)

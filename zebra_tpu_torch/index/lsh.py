@@ -8,7 +8,7 @@ that deepens buckets before allocation, the overflow / growth / tombstone
 rebuild policy, and the stored width padded for an explicit
 ``rerank="pallas"`` (the JAX package's TPU DMA tiling — kept so that
 snapshots open in both packages). The background retrain of the JAX package
-is not ported (ROADMAP.md queue 1, item 5): rebuilds run inline.
+is not ported (ROADMAP.md queue 1, item 8): rebuilds run inline.
 
 Random draws: the numpy ``_rng`` sequence is the JAX package's (one seed per
 plane sample), and each seed feeds :func:`plane_draws`, which the parity
@@ -82,16 +82,6 @@ class LSHIndex(BaseVectorIndex):
         #: bucket-capacity multiplier: set by the build-time hot-bucket
         #: estimate, doubled by overflow-driven rebuilds
         self._cap_boost = 1
-
-    @property
-    def dtype(self) -> torch.dtype:
-        return torch.bfloat16 if self.options.dtype == "bfloat16" else torch.float32
-
-    @property
-    def _wal_codec(self) -> str:
-        """Write-ahead record encoding: bf16 for a bf16 slab (lossless for
-        what it stores), exact f32 otherwise."""
-        return "bf16" if self.dtype == torch.bfloat16 else "f32"
 
     # -- build ----------------------------------------------------------------------
 
@@ -178,21 +168,6 @@ class LSHIndex(BaseVectorIndex):
             return out
 
         st.vectors, st.norms, st.valid = grow(st.vectors), grow(st.norms), grow(st.valid)
-
-    def _stage_span(self, vectors, span):
-        """One span on the device at the stored width: a slice of a device
-        source (rebuild), or host rows padded and shipped — as bf16 for a
-        bf16 slab, the JAX package's half-width wire, whose rounding the
-        hash then sees. A host span's f32/bf16 write-ahead record is
-        written after its copy is queued and before its insert."""
-        start, count = span
-        if isinstance(vectors, torch.Tensor):
-            return vectors[start : start + count]
-        rows = self._pad_dim(np.ascontiguousarray(vectors[start : start + count], dtype=np.float32))
-        batch = torch.from_numpy(rows).to(self.dtype).to(self.device)
-        if self._wal_cb is not None:
-            self._wal_cb(span, None)
-        return batch
 
     def _insert_batch_dev(self, batch) -> np.ndarray:
         count = batch.shape[0]

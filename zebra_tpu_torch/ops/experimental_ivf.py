@@ -28,9 +28,9 @@ import ctypes
 import torch
 
 from zebra_tpu_torch.ops import topk as TK
-from zebra_tpu_torch.ops.ivf_rerank import (BIG, _METRIC_CODE, _ptr, check_launch, collect,
-                                            distance_from_parts, probe_rows, ref_chunk,
-                                            select_slots)
+from zebra_tpu_torch.ops.ivf_rerank import (_DTYPE_CODE, _METRIC_CODE, BIG, _ptr, check_launch,
+                                            collect, distance_from_parts, probe_rows,
+                                            ref_chunk, select_slots)
 
 #: launches of ``csrc/ivf_rerank_wave.cu`` since the last reset
 LAUNCHES_WAVE = 0
@@ -43,7 +43,6 @@ AUG = 128
 #: (bf16(3.2e38) = 3.20e38 > BIG; a 3.0e38 constant would round DOWN below BIG
 #: in bf16 and dead rows would leak through the sentinel clamp)
 PEN = 3.2e38
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 
 # -- the one-slab wave re-rank (kernel 2) -----------------------------------------

@@ -3,12 +3,14 @@
 Three things live here:
 
 * :func:`ivf_rerank` — the adapter ``ivf.query`` calls, with the contract of
-  ``pallas_ivf.ivf_rerank`` (residual-scan form): per query, the top-k over
-  its P probed cluster blocks, as ``(dists, slots, valid)`` with +inf / -1 /
-  False for missing results.
+  ``pallas_ivf.ivf_rerank`` in all its slab forms (int8 with scales, with or
+  without the residual scan; bf16 and f32 without scales): per query, the
+  top-k over its P probed cluster blocks, as ``(dists, slots, valid)`` with
+  +inf / -1 / False for missing results.
 * :func:`ivf_rerank_reference` — the plain torch version (CPU oracle, and
   what ``chip_smoke.py`` holds the kernel against on the card).
-* the CUDA launch of ``csrc/ivf_rerank.cu``, counted in :data:`LAUNCHES`.
+* the CUDA launch of ``csrc/ivf_rerank.cu``, counted in :data:`LAUNCHES` and,
+  by slab form, in :data:`LAUNCHES_BY_FORM`.
 
 Routing: a CPU query runs the plain version (``dots="highest"``, the grade
 the kernel computes); a CUDA query launches the kernel or raises — there is
@@ -25,6 +27,8 @@ from zebra_tpu_torch.ops import topk as TK
 
 #: kernel launches since the last reset (the main-path proof in chip_smoke.py)
 LAUNCHES = 0
+#: the same launches by slab form: "int8+residual", "int8", "bf16", "f32"
+LAUNCHES_BY_FORM: dict[str, int] = {}
 #: masked-candidate sentinel (pallas_ivf.BIG); rows at or above it are invalid
 BIG = 3.0e38
 #: widest top-k the kernel returns (pallas_ivf.OUT_K); wider k takes the
@@ -33,6 +37,9 @@ MAX_K = 128
 #: dynamic shared memory one block may use on sm_90 (227 KB)
 MAX_SMEM = 232448
 _METRIC_CODE = {"cosine": 0, "l2": 1, "sql2": 2}
+#: slab element types of the kernels' C entry points
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+_FORM_NAME = {torch.float32: "f32", torch.bfloat16: "bf16", torch.int8: "int8"}
 #: most queries per chunk of a plain version (~0.8 GB of f32 gather at P=2,
 #: C=128, D=768)
 _REF_QCHUNK = 1024
@@ -170,11 +177,16 @@ def _launch(state, q32: torch.Tensor, probes: torch.Tensor, k: int, metric: str,
     global LAUNCHES
     from zebra_tpu_torch.ops import _kernels
 
-    if state.vectors.dtype != torch.int8 or state.scales is None:
+    vec = state.vectors
+    if vec.dtype not in _DTYPE_CODE:
         raise NotImplementedError(
-            f"the CUDA re-rank takes int8 slabs; {state.vectors.dtype} slabs "
-            "are not ported yet (ROADMAP.md queue 2: the kernel's f32/bf16 slab forms)"
+            f"the CUDA re-rank has int8, bf16 and f32 slab forms; a {vec.dtype} slab has none"
         )
+    if (vec.dtype == torch.int8) != (state.scales is not None):
+        raise ValueError("an int8 slab needs scales, and only an int8 slab has them")
+    res = state.residual if scan_residual else None
+    if res is not None and vec.dtype != torch.int8:
+        raise ValueError("a residual slab rides only on an int8 slab")
     if metric not in _METRIC_CODE:
         raise ValueError(f"the CUDA re-rank takes {tuple(_METRIC_CODE)}, got {metric!r}")
     B, P = probes.shape
@@ -184,12 +196,11 @@ def _launch(state, q32: torch.Tensor, probes: torch.Tensor, k: int, metric: str,
                          f"got {tuple(q32.shape)}")
     check_launch(k, P, C, D)
     dev = q32.device
-    res = state.residual if scan_residual else None
-    tensors = [state.vectors, state.scales, state.norms, state.valid, state.counts]
+    tensors = [vec, state.scales, state.norms, state.valid, state.counts]
     if res is not None:
         tensors += [res, state.rscales]
     for t in tensors:
-        if t.device != dev or not t.is_contiguous():
+        if t is not None and (t.device != dev or not t.is_contiguous()):
             raise ValueError("IVF state tensors must be contiguous on the query's device")
     if state.counts.dtype != torch.int32 or state.valid.dtype != torch.bool:
         raise ValueError("counts must be int32 and valid bool")
@@ -202,10 +213,11 @@ def _launch(state, q32: torch.Tensor, probes: torch.Tensor, k: int, metric: str,
     lib = _kernels.load("ivf_rerank")
     fn = lib.zt_ivf_rerank
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_void_p] * 7
+                   + [ctypes.c_int] * 6 + [ctypes.c_void_p])
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = fn(
-        _ptr(q), _ptr(pr), _ptr(state.counts), _ptr(state.vectors), _ptr(res),
+        _ptr(q), _ptr(pr), _ptr(state.counts), _ptr(vec), _DTYPE_CODE[vec.dtype], _ptr(res),
         _ptr(state.scales), _ptr(state.rscales if res is not None else None),
         _ptr(state.norms), _ptr(state.valid), _ptr(out_d), _ptr(out_s),
         B, P, C, D, k, _METRIC_CODE[metric], ctypes.c_void_p(stream),
@@ -213,6 +225,8 @@ def _launch(state, q32: torch.Tensor, probes: torch.Tensor, k: int, metric: str,
     if err != 0:
         raise RuntimeError(f"ivf_rerank kernel launch failed: cudaError {err}")
     LAUNCHES += 1
+    form = _FORM_NAME[vec.dtype] + ("+residual" if res is not None else "")
+    LAUNCHES_BY_FORM[form] = LAUNCHES_BY_FORM.get(form, 0) + 1
     return out_d, out_s, out_s >= 0
 
 

@@ -35,6 +35,19 @@ def _to_np(t) -> np.ndarray:
     return arr
 
 
+def slab_from_np(arr, device="cpu", dtype=None) -> torch.Tensor:
+    """A slab tensor on ``device`` from its host form: uint16 bit patterns
+    (the snapshot encoding of bf16) or an ``ml_dtypes`` bf16 array (a JAX
+    state's leaf) become bf16, any other array keeps its type; ``dtype``,
+    when given, casts the result."""
+    arr = np.asarray(arr)
+    if arr.dtype == np.uint16 or arr.dtype.name == "bfloat16":
+        t = torch.from_numpy(np.array(arr).view(np.int16)).to(device).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(arr)).to(device)
+    return t if dtype is None else t.to(dtype)
+
+
 def _member_meta(arr):
     """(shape, np dtype of the ENCODED stream) for any input array."""
     if isinstance(arr, torch.Tensor):
