@@ -7,18 +7,29 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
 
 1. the card (``nvidia-smi`` name and power limit); CUDA must be available
    and TF32 off;
-2. build the five kernel sources from ``zebra_tpu_torch/csrc`` (one ``nvcc``
-   per source, all started together);
+2. build the six kernel sources from ``zebra_tpu_torch/csrc`` (one ``nvcc``
+   per source, all started together), and count the int-to-float
+   conversions, byte permutes and tensor-core products in each library's
+   machine code (``cuobjdump -sass``);
 3. IVF kernel parity at its main path's shapes (D=768, C=128, P=2, k=10 and
    k=128, B=1024; ragged counts, tombstones, an all-invalid probe) against
-   the plain torch version, and both timed at B=16384; then its forms
-   without a residual on the same synthetic state (plain int8 with scales,
-   the coarse values as bf16 and as f32; P=4, three metrics, k=10 and 128,
-   B=1024), each timed at B=16384, P=4 beside its bound;
+   the plain torch version; the cluster-major form (``ivf_rerank_cluster.cu``)
+   the same way at P=2, 3, 4 and with a hot cluster, three metrics,
+   k=10/40/128, and its scoring and selection kernels each against their
+   plain versions; both forms timed in turns at B=1024 and B=16384; then the
+   forms without a residual on the same synthetic state (plain int8 with
+   scales, the coarse values as bf16 and as f32; P=4, three metrics, k=10
+   and 128, B=1024; the cluster-major form for int8 and bf16), each timed at
+   B=16384, P=4 beside its bound;
 4. the IVF path at the library defaults: ``Database.create`` with
    ``DatabaseConfig(dim=768)``, ``insert_vectors`` of 1M rows, ``query`` in
    batches of 1024, recall@10 against the exact scan, self-retrieval,
-   ``remove``, ``save`` and reopen — and the kernel's launch count over it;
+   ``remove``, ``save`` and reopen — and the kernel's launch count by form
+   over it; then, on the path's own probes at B=1024 and 16384, both kernel
+   forms against the plain version and in turns, probe selection's stage 1
+   on the tensor cores against its plain version (times in turns, probe
+   agreement with it and with the exact f32 probes), and the stages of one
+   device query;
 5. LSH kernel parity (D=768, B=1024, candidate widths 3000 and 65,536, k=10
    and k=128, three metrics, f32 and bf16 slabs; -1 pads, masked duplicates,
    an all-invalid query, a zero-norm row) against the plain torch version,
@@ -41,13 +52,15 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    search beside the exact scan;
 7. one-slab wave kernel parity on the synthetic state of phase 3 (int8 with
    scales, bf16 and f32 slabs, three metrics, k=10/40/128, P=4 and an odd
-   P=3, B=1024) against the plain torch version, and both timed at B=16384,
-   P=4, k=40 on the int8 slab;
+   P=3, B=1024) against the plain torch version, per-query form and (int8,
+   bf16) cluster-major form (also P=2 and a hot cluster), and both forms
+   timed in turns at B=1024 and 16384, P=4, k=40 on the int8 slab;
 8. the gather-refine path: ``DatabaseConfig(dim=768, index=IndexOptions(
    refine=4, rerank="pallas2"))`` through the same facade calls and checks as
-   phase 4 (the wave kernel's launch count over it; the probe kernel must
-   not run); then, on the path's own probes, the wave kernel against its
-   plain version, the stages of one device query timed by CUDA events, the
+   phase 4 (the wave kernel's launch count by form over it; the probe kernel
+   must not run); then, on the path's own probes, both forms of the wave
+   kernel against its plain version and in turns, probe selection as in
+   phase 4, the stages of one device query timed by CUDA events, the
    distinct probed blocks beside B*P, and the recall of phase 4's scan-mode
    database beside this one's, both against this phase's exact scan;
 9. the augmented-slab surface at the same sizing (K=16384, C=128, D=768,
@@ -58,15 +71,17 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    both timed at B=1024 and B=16384;
 10. the bf16 "balanced" tier: ``DatabaseConfig(dim=768,
    index=IndexOptions.tier("balanced"))`` through the same facade calls and
-   checks as phase 4 (the probe kernel's bf16 form; its launch count over
-   the path), then, on the path's own probes, the kernel against its plain
-   version and the stages of one device query by CUDA events.
+   checks as phase 4 (the probe kernel's bf16 forms; their launch count
+   over the path), then, on the path's own probes, as phase 4.
+
+Every IVF path must launch the cluster-major form (its batch-16384
+queries take it by ``ivf_cluster.takes_cluster_form``).
 
 A kernel's ``bound_ms`` is the larger of its distinct bytes (every input
 byte once, every output byte once) over 3.35 TB/s and its operations over
 the card's peak rate for their type, both counted from the timed inputs.
-The second-to-last line is the kernels' JSON record (``ivf_rerank`` and
-``lsh_rerank`` carry their ``forms``), the last line
+The second-to-last line is the kernels' JSON record (``ivf_rerank``,
+``ivf_rerank_wave`` and ``lsh_rerank`` carry their ``forms``), the last line
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
 
@@ -88,6 +103,9 @@ SEED = 0
 #: kernel-vs-plain tolerance: f32 dots summed in another order
 RTOL = ATOL = 1e-4
 MIN_SLOT_AGREEMENT = 0.999
+#: probe selection's stage 1 on the tensor cores against its plain version
+#: (the same products, summed in another order): share of the B*P probes
+MIN_PROBE_AGREEMENT = 0.999
 #: where kernel and plain pick different candidates at a rank, the two
 #: picks' distances recomputed in f64 must agree within this (relative to
 #: 1 + |d|): a swap of near-equal distances by f32 summation order
@@ -196,14 +214,17 @@ def lsh_d64(torch, vectors, q, cand, norms, metric):
     return d64
 
 
-def slab_d64(torch, st, qq, metric):
-    """f64 distance of query ``b`` to slab slot ``slot`` on one slab (no
-    residual), ``qq`` the query as the kernel multiplies it (the wave
-    re-rank's is bf16-rounded on reduced slabs: ``TX._wave_query``)."""
+def slab_d64(torch, st, qq, metric, residual=False):
+    """f64 distance of query ``b`` to slab slot ``slot`` on one slab (with
+    ``residual``, on the int8 + residual reconstruction), ``qq`` the query as
+    the kernel multiplies it (the wave re-rank's is bf16-rounded on reduced
+    slabs: ``TX._wave_query``)."""
     def d64(b, slot):
         x = st.vectors[slot].double()
         if st.scales is not None:
             x = x * st.scales[slot].double()[:, None]
+        if residual and st.residual is not None:
+            x = x + st.residual[slot].double() * st.rscales[slot].double()[:, None]
         qb = qq[b].double()
         return metric64(torch, metric, (x * qb).sum(-1), (qb * qb).sum(-1),
                         st.norms[slot].double())
@@ -251,9 +272,147 @@ def time_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def kernel_parity(torch, V, R, device, B=1024, B_time=N_QUERIES):
+def hold(torch, got, want, d64, min_agree=MIN_SLOT_AGREEMENT):
+    """(slot agreement, max |dist err|, differing ranks, largest f64 gap) of
+    a kernel against its plain version: validity equal, distances within
+    RTOL/ATOL, agreement at least ``min_agree`` and every differing rank an
+    f64-verified tie. On a path's clustered data neighbours sit within the
+    summation order's rounding, so the path phases hold ties alone
+    (``min_agree=0``), as they always have."""
+    agree, err = compare(torch, got, want)
+    check(agree >= min_agree, f"slot agreement {agree} < {min_agree}")
+    swaps, gap = tie_gap(torch, got[1], want[1], d64)
+    return agree, err, swaps, gap
+
+
+def cluster_cases(torch, device, B, K, seed, Ps):
+    """Probe sets for the cluster-major form: for each P the synthetic probes
+    (an all-invalid query, an all-invalid probe, the zero-norm row's
+    cluster, ragged blocks), then a hot cluster that every query but query 0
+    probes first (split over many work items)."""
+    out = []
+    for P in Ps:
+        probes = synthetic_probes(torch, device, B, K, seed + P, P=P)
+        out.append((f"P={P}", probes))
+    hot = out[0][1].clone()
+    hot[1:, 0] = 7
+    out.append((f"P={hot.shape[1]} hot cluster", hot))
+    return out
+
+
+def cluster_form_parity(torch, call, ref, d64, cases, ks):
+    """The cluster-major form (``call(probes, k, metric)``) against the
+    plain version (``ref``) over ``cases`` x three metrics x ``ks``; returns
+    (worst agreement, max abs err, differing ranks, cases run)."""
+    worst, err_t, swaps_t, n = 1.0, 0.0, 0, 0
+    for label, probes in cases:
+        for metric in ("cosine", "l2", "sql2"):
+            for k in ks:
+                got = call(probes, k, metric)
+                agree, err, swaps, _ = hold(torch, got, ref(probes, k, metric), d64(metric))
+                if not label.endswith("hot cluster"):
+                    check(not bool(got[2][0].any()), "query 0 probes only invalid rows")
+                worst, err_t = min(worst, agree), max(err_t, err)
+                swaps_t, n = swaps_t + swaps, n + 1
+    return worst, err_t, swaps_t, n
+
+
+def cluster_kernels_alone(torch, IC, st, q, probes, k, metric, round_q, residual, reps=10):
+    """The cluster-major form's kernels one at a time on the same inputs: the
+    items kernel against ``IC.work_items`` (equal), the scoring kernel's
+    buffer against ``IC.score_reference`` (+inf on the same entries, live
+    distances within RTOL/ATOL) and the selection kernel against
+    ``IC.select_reference`` on that buffer (equal). Returns the times in ms
+    of the pairs' sort alone, of sort + items + staging + scoring, and of the
+    selection kernel."""
+    pr = probes.to(torch.int32).contiguous()
+    qc = q.float().contiguous()
+    got_items = IC.items(pr, st.num_clusters, IC.ITEM_QUERIES)
+    want_items = IC.work_items(pr, st.num_clusters, IC.ITEM_QUERIES)
+    check(all(torch.equal(a, b) for a, b in zip(got_items, want_items)),
+          "items kernel differs from its plain version")
+    dist = IC.score(st, qc, pr, metric, round_q, residual)
+    want = IC.score_reference(st, qc, pr, metric, round_q, residual)
+    live = ~torch.isinf(want)
+    check(torch.equal(live, ~torch.isinf(dist)), "scoring kernel: +inf on other entries")
+    check(bool(torch.allclose(dist[live], want[live], rtol=RTOL, atol=ATOL)),
+          "scoring kernel: distances beyond RTOL/ATOL")
+    got = IC.select(dist, pr, st.cluster_capacity, k)
+    ref = IC.select_reference(dist, pr, st.cluster_capacity, k)
+    check(torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]),
+          "selection kernel differs from its plain version")
+    sort_ms = time_ms(torch, lambda: IC.sort_pairs(pr, st.num_clusters), reps)
+    score_ms = time_ms(torch, lambda: IC.score(st, qc, pr, metric, round_q, residual), reps)
+    select_ms = time_ms(torch, lambda: IC.select(dist, pr, st.cluster_capacity, k), reps)
+    del dist, want, got, ref
+    return sort_ms, score_ms, select_ms
+
+
+def in_form(IC, form, call):
+    """``call()`` with the route between the two kernel forms pinned:
+    "cluster" sends every shape the cluster-major form fits to it, "query"
+    sends every shape to the per-query kernels (for holding and timing both
+    forms on the same inputs)."""
+    saved = IC.MIN_PAIR_COLUMNS
+    IC.MIN_PAIR_COLUMNS = {k: 0 if form == "cluster" else 1 << 62 for k in saved}
+    try:
+        return call()
+    finally:
+        IC.MIN_PAIR_COLUMNS = saved
+
+
+def form_turns(torch, call, reps):
+    """``call(form)`` timed in turns: per-query, cluster, cluster, per-query.
+    Returns (per-query ms, cluster ms, the four times)."""
+    t = [time_ms(torch, lambda: call(f), reps) for f in ("query", "cluster", "cluster", "query")]
+    return (t[0] + t[3]) / 2, (t[1] + t[2]) / 2, t
+
+
+def cluster_timing(torch, IC, st, q, probes, k, metric, call, round_q, residual, peak, label,
+                   reps=20):
+    """Both forms of a re-rank timed in turns on the same inputs, the
+    cluster-major form's kernels alone, and the bound; prints one line and
+    returns the records of the two forms."""
+    B = probes.shape[0]
+    qms, cms, t = form_turns(torch, call, reps)
+    sort_ms, score_ms, select_ms = cluster_kernels_alone(
+        torch, IC, st, q, probes, k, metric, round_q, residual)
+    (bound, by), blocks, stream = probe_bound(torch, st, probes, B, k, peak, residual=residual)
+    print(f"timing: {label} B={B} P={probes.shape[1]} k={k}, in turns per-query/cluster/"
+          f"cluster/per-query {'/'.join(f'{x:.3f}' for x in t)} ms; cluster form's parts: "
+          f"sort {sort_ms:.3f}, sort + items + staging + scoring {score_ms:.3f}, selection "
+          f"{select_ms:.3f} ms; bound {bound:.3f} ms by {by} ({blocks} distinct blocks of "
+          f"{probes.numel()} probes); cluster / per-query {cms / qms:.3f}")
+    rec = {"bound_ms": bound, "bound_by": by}
+    return ({**rec, "ms": qms}, {**rec, "ms": cms, "select_ms": select_ms,
+                                 "score_ms": score_ms, "sort_ms": sort_ms})
+
+
+def print_sass_counts(libs) -> None:
+    """Per built library, the instructions of its machine code that bear on
+    the cost of int8 codes: I2F / I2FP (int -> float conversions), PRMT (byte
+    permutes), HMMA / IMMA (tensor-core products). Read with ``cuobjdump
+    -sass`` where the toolkit has it."""
+    import re
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        print("sass: cuobjdump not found; not counted")
+        return
+    for name, lib in libs.items():
+        sass = subprocess.run([tool, "-sass", lib._name], capture_output=True, text=True,
+                              timeout=120).stdout
+        ops = re.findall(r"^\s+/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9]+)", sass,
+                         flags=re.M)
+        count = {op: sum(o == op for o in ops) for op in ("I2F", "I2FP", "PRMT", "HMMA", "IMMA")}
+        print(f"sass {name}: {len(ops)} instructions, " + ", ".join(
+            f"{op} {n}" for op, n in count.items()))
+
+
+def kernel_parity(torch, V, R, IC, device, B=1024, B_time=N_QUERIES):
     """Phase 3: kernel 1 against its plain version in each slab form at the
-    main path's shapes; returns each form's record."""
+    main path's shapes, per-query form and cluster-major form, both timed in
+    turns; returns each form's record by "<slab form>/<kernel form>"."""
     st = synthetic_state(torch, V, device)
     K = st.num_clusters
     g = torch.Generator(device=device).manual_seed(SEED + 1)
@@ -261,7 +420,7 @@ def kernel_parity(torch, V, R, device, B=1024, B_time=N_QUERIES):
     probes = synthetic_probes(torch, device, B, K, SEED + 2)
     worst_err = 0.0
     for metric, k in (("cosine", 10), ("l2", 10), ("sql2", 10), ("cosine", 128)):
-        got = R.ivf_rerank(st, q, probes, k, metric)
+        got = in_form(IC, "query", lambda: R.ivf_rerank(st, q, probes, k, metric))
         want = R.ivf_rerank_reference(st, q, probes, k, metric, dots="highest")
         agree, err = compare(torch, got, want)
         print(f"parity: {metric} k={k} B={B}: slot agreement {agree:.6f}, "
@@ -269,17 +428,36 @@ def kernel_parity(torch, V, R, device, B=1024, B_time=N_QUERIES):
         check(agree >= MIN_SLOT_AGREEMENT, f"slot agreement {agree} < {MIN_SLOT_AGREEMENT}")
         check(not bool(got[2][0].any()), "query 0 probes only invalid rows")
         worst_err = max(worst_err, err)
+    # the cluster-major form: P = 2, 3, 4 and a hot cluster, three metrics, k = 10/40/128
+    cases = cluster_cases(torch, device, B, K, SEED + 20, (2, 3, 4))
+    agree_c, err_c, swaps_c, n_c = cluster_form_parity(
+        torch, lambda pr, k, m: in_form(IC, "cluster", lambda: R.ivf_rerank(st, q, pr, k, m)),
+        lambda pr, k, m: R.ivf_rerank_reference(st, q, pr, k, m),
+        lambda m: slab_d64(torch, st, q, m, residual=True), cases, (10, 40, 128))
+    print(f"parity: ivf_rerank cluster-major form, int8 + residual, P=2/3/4 and a hot "
+          f"cluster x 3 metrics x k=10/40/128 ({n_c} cases), B={B}: worst slot agreement "
+          f"{agree_c:.6f}, max abs err {err_c:.3g}; {swaps_c} differing ranks, all ties "
+          f"(f64 gap <= {TIE_TOL})")
     qt = torch.randn((B_time, st.dim), generator=g, device=device)
-    pt = synthetic_probes(torch, device, B_time, K, SEED + 3)
-    ms = time_ms(torch, lambda: R.ivf_rerank(st, qt, pt, 10, "cosine"), 20)
-    plain_ms = time_ms(torch, lambda: R.ivf_rerank_reference(st, qt, pt, 10, "cosine"), 3)
-    fill = float(st.valid[: K * st.cluster_capacity].float().mean())
-    (bound, by), blocks, _ = probe_bound(torch, st, pt, B_time, 10, PEAK_F32, residual=True)
-    print(f"timing: ivf_rerank B={B_time} P=2 C=128 D={st.dim} k=10 (live fill {fill:.3f}): "
-          f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms; bound {bound:.3f} ms by {by} "
-          f"({blocks} distinct blocks of {pt.numel()} probes, f32 rate)")
-    forms = {"int8+residual": {"max_abs_err": worst_err, "ms": ms, "plain_ms": plain_ms,
-                               "bound_ms": bound, "bound_by": by}}
+    forms = {}
+    for Bt in (B, B_time):
+        pt = synthetic_probes(torch, device, Bt, K, SEED + 3)
+        qc = q if Bt == B else qt
+        rq, rc = cluster_timing(
+            torch, IC, st, qc, pt, 10, "cosine",
+            lambda f: in_form(IC, f, lambda: R.ivf_rerank(st, qc, pt, 10, "cosine")), False, True,
+            PEAK_F32,
+            "ivf_rerank int8 + residual (synthetic, live fill "
+            f"{float(st.valid[: K * st.cluster_capacity].float().mean()):.3f})")
+        if Bt == B_time:
+            plain_ms = time_ms(torch, lambda: R.ivf_rerank_reference(st, qt, pt, 10, "cosine"), 3)
+            print(f"timing: ivf_rerank B={B_time} P=2 k=10 plain version {plain_ms:.3f} ms")
+            forms["int8+residual/query"] = {**rq, "max_abs_err": worst_err, "plain_ms": plain_ms}
+            forms["int8+residual/cluster"] = {**rc, "max_abs_err": err_c, "plain_ms": plain_ms}
+            forms["int8+residual/cluster"]["B1024_ms"] = rc1024["ms"]
+            forms["int8+residual/query"]["B1024_ms"] = rq1024["ms"]
+        else:
+            rq1024, rc1024 = rq, rc
 
     # the forms without a residual, on the coarse values of the same state
     probes = synthetic_probes(torch, device, B, K, SEED + 10, P=4)
@@ -289,25 +467,41 @@ def kernel_parity(torch, V, R, device, B=1024, B_time=N_QUERIES):
         err_t, agree_t, swaps_t = 0.0, 1.0, 0
         for metric, k in (("cosine", 10), ("l2", 10), ("sql2", 10), ("cosine", 128),
                           ("sql2", 128)):
-            got = R.ivf_rerank(s1, q, probes, k, metric)
+            got = in_form(IC, "query", lambda: R.ivf_rerank(s1, q, probes, k, metric))
             want = R.ivf_rerank_reference(s1, q, probes, k, metric)
-            agree, err = compare(torch, got, want)
-            check(agree >= MIN_SLOT_AGREEMENT, f"slot agreement {agree} < {MIN_SLOT_AGREEMENT}")
+            agree, err, swaps, _ = hold(torch, got, want, slab_d64(torch, s1, q, metric))
             check(not bool(got[2][0].any()), "query 0 probes only invalid rows")
-            swaps, _ = tie_gap(torch, got[1], want[1], slab_d64(torch, s1, q, metric))
             err_t, agree_t, swaps_t = max(err_t, err), min(agree_t, agree), swaps_t + swaps
-        ms = time_ms(torch, lambda: R.ivf_rerank(s1, qt, pt, 10, "cosine"), 20)
+        ms = time_ms(torch, lambda: in_form(
+            IC, "query", lambda: R.ivf_rerank(s1, qt, pt, 10, "cosine")), 20)
         plain_ms = time_ms(torch, lambda: R.ivf_rerank_reference(s1, qt, pt, 10, "cosine"), 2)
         (bound, by), blocks, stream = probe_bound(torch, s1, pt, B_time, 10, PEAK_F32)
-        print(f"parity: ivf_rerank {name} slab (no residual), P=4, 3 metrics at k=10 and "
-              f"cosine/sql2 at k=128, B={B}: worst slot agreement {agree_t:.6f}, max abs err "
-              f"{err_t:.3g}; {swaps_t} differing ranks, all ties (f64 gap <= {TIE_TOL})")
-        print(f"timing: ivf_rerank {name} slab B={B_time} P=4 C=128 D={st.dim} k=10: kernel "
-              f"{ms:.3f} ms, plain {plain_ms:.3f} ms; bound {bound:.3f} ms by {by} ({blocks} "
+        print(f"parity: ivf_rerank {name} slab (no residual), per-query form, P=4, 3 metrics at "
+              f"k=10 and cosine/sql2 at k=128, B={B}: worst slot agreement {agree_t:.6f}, max "
+              f"abs err {err_t:.3g}; {swaps_t} differing ranks, all ties (f64 gap <= {TIE_TOL})")
+        print(f"timing: ivf_rerank {name} slab B={B_time} P=4 C=128 D={st.dim} k=10: per-query "
+              f"form {ms:.3f} ms, plain {plain_ms:.3f} ms; bound {bound:.3f} ms by {by} ({blocks} "
               f"distinct blocks of {pt.numel()} probes, f32 rate); every query reading its own "
               f"live rows moves {stream / 1e9:.2f} GB, {stream / ms / 1e9:.2f} TB/s")
-        forms[name] = {"max_abs_err": err_t, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-                       "bound_by": by}
+        forms[f"{name}/query"] = {"max_abs_err": err_t, "ms": ms, "plain_ms": plain_ms,
+                                  "bound_ms": bound, "bound_by": by}
+        if dtype != torch.float32:
+            cases = cluster_cases(torch, device, B, K, SEED + 30, (4, 3))
+            agree_c, err_c, swaps_c, n_c = cluster_form_parity(
+                torch,
+                lambda pr, k, m: in_form(IC, "cluster", lambda: R.ivf_rerank(s1, q, pr, k, m)),
+                lambda pr, k, m: R.ivf_rerank_reference(s1, q, pr, k, m),
+                lambda m: slab_d64(torch, s1, q, m), cases, (10, 128))
+            print(f"parity: ivf_rerank cluster-major form, {name} slab, P=4/3 and a hot cluster "
+                  f"x 3 metrics x k=10/128 ({n_c} cases), B={B}: worst slot agreement "
+                  f"{agree_c:.6f}, max abs err {err_c:.3g}; {swaps_c} differing ranks, all ties "
+                  f"(f64 gap <= {TIE_TOL})")
+            rq, rc = cluster_timing(
+                torch, IC, s1, qt, pt, 10, "cosine",
+                lambda f: in_form(IC, f, lambda: R.ivf_rerank(s1, qt, pt, 10, "cosine")), False,
+                False,
+                PEAK_F32, f"ivf_rerank {name} slab (synthetic)")
+            forms[f"{name}/cluster"] = {**rc, "max_abs_err": err_c, "plain_ms": plain_ms}
         del s1
         torch.cuda.empty_cache()
     del st
@@ -332,50 +526,66 @@ def one_slab(torch, st, dtype):
                                rscales=None)
 
 
-def wave_kernel_parity(torch, V, TX, device, B=1024, B_time=N_QUERIES):
+def wave_kernel_parity(torch, V, TX, IC, device, B=1024, B_time=N_QUERIES):
     """Phase 7: kernel 2 vs its plain version on the synthetic state, every
-    slab type, and both timed on the int8 slab at the refine path's shapes."""
+    slab type, per-query form and (int8, bf16) cluster-major form, and both
+    forms timed in turns on the int8 slab at the refine path's shapes.
+    Returns the records by "<slab form>/<kernel form>"."""
     full = synthetic_state(torch, V, device)
     K = full.num_clusters
     g = torch.Generator(device=device).manual_seed(SEED + 5)
     q = torch.randn((B, full.dim), generator=g, device=device)
-    worst_agree, worst_err = 1.0, 0.0
+    recs = {}
     for dtype in (torch.int8, torch.bfloat16, torch.float32):
+        name = str(dtype)[6:].replace("bfloat16", "bf16").replace("float32", "f32")
         st = one_slab(torch, full, dtype)
         agree_t, err_t, swaps_t = 1.0, 0.0, 0
         for P in (4, 3):
             probes = synthetic_probes(torch, device, B, K, SEED + 6, P=P)
             for metric in ("cosine", "l2", "sql2"):
+                d64 = slab_d64(torch, st, TX._wave_query(st, q), metric)
                 for k in (10, 40, 128):
-                    got = TX.ivf_rerank_wave(st, q, probes, k, metric)
+                    got = in_form(IC, "query", lambda: TX.ivf_rerank_wave(st, q, probes, k, metric))
                     want = TX.ivf_rerank_wave_reference(st, q, probes, k, metric)
-                    agree, err = compare(torch, got, want)
-                    check(agree >= MIN_SLOT_AGREEMENT,
-                          f"slot agreement {agree} < {MIN_SLOT_AGREEMENT}")
+                    agree, err, swaps, _ = hold(torch, got, want, d64)
                     check(not bool(got[2][0].any()), "query 0 probes only invalid rows")
-                    swaps, _ = tie_gap(torch, got[1], want[1],
-                                       slab_d64(torch, st, TX._wave_query(st, q), metric))
-                    agree_t, err_t = min(agree_t, agree), max(err_t, err)
-                    swaps_t += swaps
-        print(f"parity: ivf_rerank_wave {str(dtype)[6:]} slab, P=4 and 3, 3 metrics x "
+                    agree_t, err_t, swaps_t = min(agree_t, agree), max(err_t, err), swaps_t + swaps
+        print(f"parity: ivf_rerank_wave {name} slab, per-query form, P=4 and 3, 3 metrics x "
               f"k=10/40/128, B={B}: worst slot agreement {agree_t:.6f}, max abs err "
               f"{err_t:.3g}; {swaps_t} differing ranks, all ties (f64 gap <= {TIE_TOL})")
-        worst_agree, worst_err = min(worst_agree, agree_t), max(worst_err, err_t)
+        recs[f"{name}/query"] = {"max_abs_err": err_t}
+        if dtype != torch.float32:
+            cases = cluster_cases(torch, device, B, K, SEED + 40, (4, 3, 2))
+            agree_c, err_c, swaps_c, n_c = cluster_form_parity(
+                torch, lambda pr, k, m: in_form(
+                    IC, "cluster", lambda: TX.ivf_rerank_wave(st, q, pr, k, m)),
+                lambda pr, k, m: TX.ivf_rerank_wave_reference(st, q, pr, k, m),
+                lambda m: slab_d64(torch, st, TX._wave_query(st, q), m), cases, (10, 40, 128))
+            print(f"parity: ivf_rerank_wave cluster-major form, {name} slab, P=4/3/2 and a hot "
+                  f"cluster x 3 metrics x k=10/40/128 ({n_c} cases), B={B}: worst slot "
+                  f"agreement {agree_c:.6f}, max abs err {err_c:.3g}; {swaps_c} differing "
+                  f"ranks, all ties (f64 gap <= {TIE_TOL})")
+            recs[f"{name}/cluster"] = {"max_abs_err": err_c}
         if dtype != torch.int8:
             del st
             torch.cuda.empty_cache()
     st = one_slab(torch, full, torch.int8)
     qt = torch.randn((B_time, st.dim), generator=g, device=device)
-    pt = synthetic_probes(torch, device, B_time, K, SEED + 7, P=4)
-    ms = time_ms(torch, lambda: TX.ivf_rerank_wave(st, qt, pt, 40, "cosine"), 20)
+    for Bt in (B, B_time):
+        pt = synthetic_probes(torch, device, Bt, K, SEED + 7, P=4)
+        qc = qt[:Bt]
+        rq, rc = cluster_timing(
+            torch, IC, st, qc, pt, 40, "cosine",
+            lambda f: in_form(IC, f, lambda: TX.ivf_rerank_wave(st, qc, pt, 40, "cosine")), True,
+            False,
+            PEAK_BF16, "ivf_rerank_wave int8 (synthetic state)")
     plain_ms = time_ms(torch, lambda: TX.ivf_rerank_wave_reference(st, qt, pt, 40, "cosine"), 2)
-    (bound, by), blocks, _ = probe_bound(torch, st, pt, B_time, 40, PEAK_BF16)
-    print(f"timing: ivf_rerank_wave B={B_time} P=4 C=128 D={st.dim} k=40 int8 (synthetic "
-          f"state): kernel {ms:.3f} ms, plain {plain_ms:.3f} ms; bound {bound:.3f} ms by {by} "
-          f"({blocks} distinct blocks of {pt.numel()} probes, bf16 rate)")
+    print(f"timing: ivf_rerank_wave B={B_time} P=4 k=40 int8 plain version {plain_ms:.3f} ms")
+    recs["int8/query"].update({**rq, "plain_ms": plain_ms})
+    recs["int8/cluster"].update({**rc, "plain_ms": plain_ms})
     del st, full
     torch.cuda.empty_cache()
-    return {"max_abs_err": worst_err, "ms": ms, "plain_ms": plain_ms}
+    return recs
 
 
 def main_path(torch, zt, V, tmp, base, queries, cfg, tag, counter):
@@ -495,50 +705,146 @@ def main_path(torch, zt, V, tmp, base, queries, cfg, tag, counter):
     return launches, db, ids, approx_rows, launches_by_form
 
 
-def refine_path_stages(torch, V, TX, db, ids, queries, scan_rows):
+def probe_selection_report(torch, V, st, qt, P, metric, tag):
+    """Probe selection's stage 1 on the tensor cores (one bf16 GEMM with an
+    f32 accumulator) against its plain version (the bf16 operands multiplied
+    in f32 on the CUDA cores), both followed by the same f32 stage 2: the
+    two timed in turns (new, plain, plain, new), the share of the B*P probes
+    they agree on (held to MIN_PROBE_AGREEMENT) and each one's agreement
+    with the exact f32 probes (printed). Returns the new selection's ms."""
+    def sel(emulate):
+        cand = V.probe_candidates(st, qt, 2 * P, metric, emulate=emulate)
+        return V.rescore_probes(st, qt, cand, P, metric)
+
+    t = [time_ms(torch, lambda: sel(e), 10) for e in (False, True, True, False)]
+    new, plain = sel(False), sel(True)
+    exact = V.select_probes(st, qt, P, metric, probe_sel="f32")
+
+    def agree(a, b):
+        return float((a[:, :, None] == b[:, None, :]).any(-1).float().mean())
+
+    a_plain, a_new, a_old = agree(new, plain), agree(new, exact), agree(plain, exact)
+    print(f"{tag}probe selection, B={qt.shape[0]} P={P}, in turns tensor-core/plain/plain/"
+          f"tensor-core {'/'.join(f'{x:.3f}' for x in t)} ms; the two agree on {a_plain:.6f} of "
+          f"the B*P probes; agreement with the exact f32 probes: tensor-core {a_new:.6f}, "
+          f"plain {a_old:.6f}")
+    check(a_plain >= MIN_PROBE_AGREEMENT,
+          f"stage 1 on the tensor cores agrees with its plain version on {a_plain} < "
+          f"{MIN_PROBE_AGREEMENT} of the probes")
+    return (t[0] + t[3]) / 2
+
+
+def probe_path_stages(torch, V, R, IC, db, queries, scan_residual, tag):
+    """Phases 4 and 10, after the facade run (these launches come after the
+    count was read): kernel 1's form of the tier on the path's own probes,
+    both kernel forms against the plain version and timed in turns, probe
+    selection new against plain, and the stages of one device query by CUDA
+    events, at B=1024 and B=16384. Returns the records of the two forms at
+    B=16384."""
+    idx = db.index
+    st, metric, P = idx.state, idx.metric, idx.options.resolved_probes()
+    name = str(st.vectors.dtype)[6:].replace("bfloat16", "bf16") + (
+        "+residual" if scan_residual and st.residual is not None else "")
+    recs = {}
+    for B in (1024, queries.shape[0]):
+        qt = torch.from_numpy(queries[:B]).to(idx.device)
+        probes = V.select_probes(st, qt, P, metric, idx.options.probe_sel)
+        want = R.ivf_rerank_reference(st, qt, probes, 10, metric, scan_residual=scan_residual)
+        d64 = slab_d64(torch, st, qt, metric, residual=scan_residual)
+        for form in ("query", "cluster"):
+            # clustered data: every differing rank must be a tie
+            got = in_form(IC, form, lambda: R.ivf_rerank(st, qt, probes, 10, metric, scan_residual))
+            agree, err, swaps, gap = hold(torch, got, want, d64, min_agree=0.0)
+            print(f"{tag}parity: ivf_rerank {name} {form} form on the path's probes, B={B} P={P} "
+                  f"k=10: slot agreement {agree:.6f}, max abs err {err:.3g}, valid results "
+                  f"{int(got[2].sum())}; {swaps} differing ranks, all ties (largest f64 gap "
+                  f"{gap:.3g} <= {TIE_TOL})")
+            recs.setdefault(f"{name}/{form}", {})["max_abs_err"] = max(
+                err, recs.get(f"{name}/{form}", {}).get("max_abs_err", 0.0))
+            del got
+        rq, rc = cluster_timing(
+            torch, IC, st, qt, probes, 10, metric,
+            lambda f: in_form(IC, f, lambda: R.ivf_rerank(st, qt, probes, 10, metric,
+                                                          scan_residual)), False,
+            scan_residual and st.residual is not None, PEAK_F32, f"{tag}ivf_rerank {name} (path)")
+        plain_ms = time_ms(torch, lambda: R.ivf_rerank_reference(
+            st, qt, probes, 10, metric, scan_residual=scan_residual), 2)
+        kernel_ms = time_ms(torch, lambda: R.ivf_rerank(st, qt, probes, 10, metric,
+                                                        scan_residual), 20)
+        sel_ms = probe_selection_report(torch, V, st, qt, P, metric, tag)
+        spare = "spare empty, _merge_spare not run"
+        if idx._spare_used > 0:
+            got = R.ivf_rerank(st, qt, probes, 10, metric, scan_residual)
+            sp = time_ms(torch, lambda: V._merge_spare(st, qt, *got, 10, metric,
+                                                       scan_residual), 5)
+            spare = f"_merge_spare {sp:.3f} ms"
+        whole_ms = time_ms(torch, lambda: idx._query_device(qt, 10, exact=False), 10)
+        route = "cluster" if IC.takes_cluster_form(B, P, st.dim, st.cluster_capacity,
+                                                   st.vectors.dtype, 10) else "query"
+        print(f"{tag}stages, B={B}, one device query {whole_ms:.3f} ms: select_probes "
+              f"{sel_ms:.3f} ms, ivf_rerank {kernel_ms:.3f} ms ({route} form by the route; plain "
+              f"{plain_ms:.3f} ms), {spare}; distinct probed blocks "
+              f"{int(torch.unique(probes).numel())} of B*P = {B * P}")
+        if B == queries.shape[0]:
+            recs[f"{name}/query"].update({**rq, "plain_ms": plain_ms})
+            recs[f"{name}/cluster"].update({**rc, "plain_ms": plain_ms})
+        del probes, want
+    return recs
+
+
+def refine_path_stages(torch, V, TX, IC, db, ids, queries, scan_rows):
     """Phase 8, after the facade run (these launches come after the count
-    was read): kernel 2 on the path's own probes against its plain version,
-    the stages of one device query by CUDA events, the distinct probed
-    blocks, and both tiers' recall against this database's exact scan."""
+    was read): kernel 2 on the path's own probes, both forms against the
+    plain version and timed in turns, probe selection new against plain, the
+    stages of one device query by CUDA events, the distinct probed blocks,
+    and both tiers' recall against this database's exact scan."""
     import numpy as np
 
     idx = db.index
     st, metric = idx.state, idx.metric
     P, kk = idx.options.resolved_probes(), idx.options.refine_k(10)
     check((P, kk) == (4, 40), f"refine=4 must resolve to P=4, kk=40, got {(P, kk)}")
-    rec = {}
+    recs = {}
     for B in (1024, queries.shape[0]):
         qt = torch.from_numpy(queries[:B]).to(idx.device)
         probes = V.select_probes(st, qt, P, metric, idx.options.probe_sel)
-        got = TX.ivf_rerank_wave(st, qt, probes, kk, metric)
         want = TX.ivf_rerank_wave_reference(st, qt, probes, kk, metric)
-        # clustered data: near-equal distances swap by f32 summation order,
-        # so every differing rank is held to a tie (as phase 6 does)
-        agree, err = compare(torch, got, want)
-        swaps, gap = tie_gap(torch, got[1], want[1],
-                             slab_d64(torch, st, TX._wave_query(st, qt), metric))
-        print(f"refine parity: ivf_rerank_wave on the path's probes, B={B} P={P} k={kk}: "
-              f"slot agreement {agree:.6f}, max abs err {err:.3g}, valid results "
-              f"{int(got[2].sum())}; {swaps} differing ranks, all ties (largest f64 gap "
-              f"{gap:.3g} <= {TIE_TOL})")
-        ms = time_ms(torch, lambda: TX.ivf_rerank_wave(st, qt, probes, kk, metric), 20)
+        d64 = slab_d64(torch, st, TX._wave_query(st, qt), metric)
+        for form in ("query", "cluster"):
+            # clustered data: near-equal distances swap by f32 summation order,
+            # so every differing rank is held to a tie (as phase 6 does)
+            got = in_form(IC, form, lambda: TX.ivf_rerank_wave(st, qt, probes, kk, metric))
+            agree, err, swaps, gap = hold(torch, got, want, d64, min_agree=0.0)
+            print(f"refine parity: ivf_rerank_wave {form} form on the path's probes, B={B} "
+                  f"P={P} k={kk}: slot agreement {agree:.6f}, max abs err {err:.3g}, valid "
+                  f"results {int(got[2].sum())}; {swaps} differing ranks, all ties (largest "
+                  f"f64 gap {gap:.3g} <= {TIE_TOL})")
+            recs.setdefault(f"int8/{form}", {})["max_abs_err"] = max(
+                err, recs.get(f"int8/{form}", {}).get("max_abs_err", 0.0))
+        rq, rc = cluster_timing(
+            torch, IC, st, qt, probes, kk, metric,
+            lambda f: in_form(IC, f, lambda: TX.ivf_rerank_wave(st, qt, probes, kk, metric)), True,
+            False,
+            PEAK_BF16, "refine ivf_rerank_wave int8 (path)")
         plain_ms = time_ms(
             torch, lambda: TX.ivf_rerank_wave_reference(st, qt, probes, kk, metric), 2)
-        (bound, by), blocks, _ = probe_bound(torch, st, probes, B, kk, PEAK_BF16)
-        sel_ms = time_ms(
-            torch, lambda: V.select_probes(st, qt, P, metric, idx.options.probe_sel), 10)
+        kernel_ms = time_ms(torch, lambda: TX.ivf_rerank_wave(st, qt, probes, kk, metric), 20)
+        sel_ms = probe_selection_report(torch, V, st, qt, P, metric, "refine ")
         ref_ms = time_ms(torch, lambda: V._refine_topk(st, qt, *got, 10, metric), 10)
         spare = "spare empty, _merge_spare not run"
         if idx._spare_used > 0:
             sp = time_ms(torch, lambda: V._merge_spare(st, qt, *got, kk, metric, False), 5)
             spare = f"_merge_spare {sp:.3f} ms"
         whole_ms = time_ms(torch, lambda: idx._query_device(qt, 10, exact=False), 10)
+        route = "cluster" if IC.takes_cluster_form(B, P, st.dim, st.cluster_capacity,
+                                                   st.vectors.dtype, kk, round_q=True) else "query"
         print(f"refine stages, B={B}, one device query {whole_ms:.3f} ms: select_probes "
-              f"{sel_ms:.3f} ms, ivf_rerank_wave {ms:.3f} ms (plain {plain_ms:.3f} ms; bound "
-              f"{bound:.3f} ms by {by}, bf16 rate), {spare}, _refine_topk {ref_ms:.3f} ms; "
-              f"distinct probed blocks {blocks} of B*P = {B * P}")
-        rec = {"max_abs_err": max(err, rec.get("max_abs_err", 0.0)), "ms": ms,
-               "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by}
+              f"{sel_ms:.3f} ms, ivf_rerank_wave {kernel_ms:.3f} ms ({route} form by the route; "
+              f"plain {plain_ms:.3f} ms), {spare}, _refine_topk {ref_ms:.3f} ms; distinct probed "
+              f"blocks {int(torch.unique(probes).numel())} of B*P = {B * P}")
+        if B == queries.shape[0]:
+            recs["int8/query"].update({**rq, "plain_ms": plain_ms})
+            recs["int8/cluster"].update({**rc, "plain_ms": plain_ms})
         del got, want, probes
 
     # both tiers against ONE oracle: this database's exact scan, by base row
@@ -558,51 +864,7 @@ def refine_path_stages(torch, V, TX, db, ids, queries, scan_rows):
     print(f"recall@10 of the same 1024 held-out queries against this phase's exact scan "
           f"(100 rows removed in both): refine=4 P=4 {recall(rows(approx)):.4f}; "
           f"refine='scan' P=2 (phase 4's answers) {recall(scan_rows.tolist()):.4f}")
-    return rec
-
-
-def plain_path_stages(torch, V, R, db, queries):
-    """Phase 10, after the facade run (these launches come after the count
-    was read): kernel 1's form of the tier on the path's own probes against
-    its plain version, and the stages of one device query by CUDA events, at
-    B=1024 and B=16384. Returns the kernel's record at B=16384."""
-    idx = db.index
-    st, metric, P = idx.state, idx.metric, idx.options.resolved_probes()
-    name = str(st.vectors.dtype)[6:]
-    rec = {}
-    for B in (1024, queries.shape[0]):
-        qt = torch.from_numpy(queries[:B]).to(idx.device)
-        probes = V.select_probes(st, qt, P, metric, idx.options.probe_sel)
-        got = R.ivf_rerank(st, qt, probes, 10, metric, scan_residual=False)
-        want = R.ivf_rerank_reference(st, qt, probes, 10, metric, scan_residual=False)
-        # clustered data: every differing rank must be a tie (as phase 8)
-        agree, err = compare(torch, got, want)
-        swaps, gap = tie_gap(torch, got[1], want[1], slab_d64(torch, st, qt, metric))
-        print(f"{name} parity: ivf_rerank on the path's probes, B={B} P={P} k=10: slot "
-              f"agreement {agree:.6f}, max abs err {err:.3g}, valid results "
-              f"{int(got[2].sum())}; {swaps} differing ranks, all ties (largest f64 gap "
-              f"{gap:.3g} <= {TIE_TOL})")
-        ms = time_ms(torch, lambda: R.ivf_rerank(st, qt, probes, 10, metric, False), 20)
-        plain_ms = time_ms(
-            torch, lambda: R.ivf_rerank_reference(st, qt, probes, 10, metric,
-                                                  scan_residual=False), 2)
-        (bound, by), blocks, stream = probe_bound(torch, st, probes, B, 10, PEAK_F32)
-        sel_ms = time_ms(
-            torch, lambda: V.select_probes(st, qt, P, metric, idx.options.probe_sel), 10)
-        spare = "spare empty, _merge_spare not run"
-        if idx._spare_used > 0:
-            sp = time_ms(torch, lambda: V._merge_spare(st, qt, *got, 10, metric), 5)
-            spare = f"_merge_spare {sp:.3f} ms"
-        whole_ms = time_ms(torch, lambda: idx._query_device(qt, 10, exact=False), 10)
-        print(f"{name} stages, B={B}, one device query {whole_ms:.3f} ms: select_probes "
-              f"{sel_ms:.3f} ms, ivf_rerank {ms:.3f} ms (plain {plain_ms:.3f} ms; bound "
-              f"{bound:.3f} ms by {by}, f32 rate; each (query, probe) reading its own live "
-              f"rows moves {stream / 1e9:.2f} GB, {stream / ms / 1e9:.2f} TB/s), {spare}; "
-              f"distinct probed blocks {blocks} of B*P = {B * P}")
-        rec = {"max_abs_err": max(err, rec.get("max_abs_err", 0.0)), "ms": ms,
-               "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by}
-        del got, want, probes
-    return rec
+    return recs
 
 
 def lsh_candidates(torch, device, S, B, M, seed):
@@ -1080,6 +1342,72 @@ def aug_path(torch, V, TX, device, K=16384, C=128, D=DIM, P=4, B=1024, B_time=N_
     return launches, rec
 
 
+def kernels_record(forms, scan_forms, bal_forms, ivf_total, lsh_run, lsh_rec, wave_forms,
+                   path_recs, wave_by_form, wave_launches, aug_launches, aug_rec):
+    """The kernels' JSON record: one entry per TPU kernel; ``ivf_rerank``,
+    ``ivf_rerank_wave`` and ``lsh_rerank`` carry their ``forms``."""
+    source = {"query": "zebra_tpu_torch/csrc/ivf_rerank.cu",
+              "cluster": "zebra_tpu_torch/csrc/ivf_rerank_cluster.cu"}
+
+    def entry(name, replaces, n, r, src=None):
+        return {"name": name, "route": "cuda",
+                "source": src or f"zebra_tpu_torch/csrc/{name}.cu",
+                "replaces": replaces, "launches": n, "max_abs_err": r["max_abs_err"],
+                "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                "bound_by": r["bound_by"],
+                # no single PyTorch call gathers, scores and selects per query
+                "library_ms": None}
+
+    def form_records(recs, path_launches, wave=False):
+        """each "<slab>/<kernel>" form: its source, launches over the paths,
+        time, plain version's time and bound (synthetic state, and on the
+        path's own probes where a path runs the slab form)"""
+        out = {}
+        for key, r in recs.items():
+            kind = key.split("/")[1]
+            src = (source[kind] if kind == "cluster" or not wave
+                   else "zebra_tpu_torch/csrc/ivf_rerank_wave.cu")
+            out[key] = {"source": src, "launches": path_launches.get(key, 0),
+                        **r}
+        return out
+
+    # kernel 1: the entry's numbers are those of the form the defaults path
+    # launched most, on the synthetic state at B=16384 (as in earlier runs);
+    # every form's, on the synthetic state and on its path's probes, under "forms"
+    ivf_launches = {**scan_forms}
+    for key, n in bal_forms.items():
+        ivf_launches[key] = ivf_launches.get(key, 0) + n
+    main_form = max(scan_forms, key=scan_forms.get)
+    ivf_rec = {**forms[main_form], "max_abs_err": max(
+        max(f.get("max_abs_err", 0.0), f.get("path_max_abs_err", 0.0)) for f in forms.values())}
+    # kernel 2: the refine path's probes at B=16384, the form it launched most
+    wave_main = max(wave_by_form, key=wave_by_form.get)
+    wave_rec = {**path_recs[wave_main], "max_abs_err": max(
+        [r["max_abs_err"] for r in path_recs.values()]
+        + [r["max_abs_err"] for r in wave_forms.values()])}
+    for key, r in path_recs.items():
+        wave_forms[key] = {**wave_forms.get(key, {}), **{f"path_{k}": v for k, v in r.items()}}
+    return {"kernels": [
+        {**entry("ivf_rerank", "zebra_tpu/ops/pallas_ivf.py:72", ivf_total,
+                 ivf_rec, source[main_form.split("/")[1]]),
+         "forms": form_records(forms, ivf_launches)},
+        # one TPU kernel, two forms on the card: the entry's source and time
+        # are those of the slab-major form, which the path launched
+        {**entry("lsh_rerank_slab", "zebra_tpu/ops/pallas_rerank.py:48", lsh_run["launches"],
+                 {**lsh_run, "max_abs_err": max(lsh_rec["max_abs_err"], lsh_run["max_abs_err"])}),
+         "name": "lsh_rerank",
+         "forms": {"slab": {"source": "zebra_tpu_torch/csrc/lsh_rerank_slab.cu",
+                            "launches": lsh_run["launches_slab"], "ms": lsh_run["ms"]},
+                   "gather": {"source": "zebra_tpu_torch/csrc/lsh_rerank.cu",
+                              "launches": lsh_run["launches"] - lsh_run["launches_slab"],
+                              "ms": lsh_run["gather_ms"]}}},
+        {**entry("ivf_rerank_wave", "zebra_tpu/ops/experimental_ivf.py:34", wave_launches,
+                 wave_rec, source["cluster"] if wave_main.endswith("cluster") else None),
+         "forms": form_records(wave_forms, wave_by_form, wave=True)},
+        entry("ivf_rerank_aug", "zebra_tpu/ops/experimental_ivf.py:178", aug_launches, aug_rec),
+    ]}
+
+
 def main() -> int:
     import torch
 
@@ -1094,6 +1422,7 @@ def main() -> int:
         from zebra_tpu_torch.index import ivf as V
         from zebra_tpu_torch.ops import _kernels
         from zebra_tpu_torch.ops import experimental_ivf as TX
+        from zebra_tpu_torch.ops import ivf_cluster as IC
         from zebra_tpu_torch.ops import ivf_rerank as R
         from zebra_tpu_torch.ops import lsh_rerank as LR
         from zebra_tpu_torch.utils import make_data
@@ -1114,10 +1443,10 @@ def main() -> int:
 
     # phase 2: build, one nvcc per kernel, all at once
     kernels = ("ivf_rerank", "lsh_rerank", "lsh_rerank_slab", "ivf_rerank_wave",
-               "ivf_rerank_aug")
+               "ivf_rerank_aug", "ivf_rerank_cluster")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(kernels)) as pool:
-        list(pool.map(_kernels.load, kernels))
+        libs = dict(zip(kernels, pool.map(_kernels.load, kernels)))
     print(f"build: {', '.join(kernels)} in {time.perf_counter() - t0:.2f} s")
     for name in kernels:
         log = _kernels.BUILD_LOG.get(name, "")
@@ -1128,9 +1457,10 @@ def main() -> int:
         if regs:
             print(f"ptxas {name}: {len(regs)} kernels, {min(regs)}-{max(regs)} registers, "
                   f"{spills} with spills")
+    print_sass_counts(libs)
 
-    # phase 3: IVF kernel parity and timing, every slab form
-    forms = kernel_parity(torch, V, R, device)
+    # phase 3: IVF kernel parity and timing, every slab form, both kernel forms
+    forms = kernel_parity(torch, V, R, IC, device)
 
     t0 = time.perf_counter()
     data = make_data(N_ROWS + N_QUERIES, DIM, SEED)
@@ -1143,10 +1473,14 @@ def main() -> int:
     try:
         launches, db, _, scan_rows, scan_forms = main_path(
             torch, zt, V, tmp, base, queries, zt.DatabaseConfig(dim=DIM), "", (R, "LAUNCHES"))
-        check(set(scan_forms) == {"int8+residual"},
-              "the defaults must launch only the int8 + residual form")
+        check({f.split("/")[0] for f in scan_forms} == {"int8+residual"},
+              "the defaults must launch only the int8 + residual slab form")
+        check(scan_forms.get("int8+residual/cluster", 0) > 0,
+              "the defaults path must run the cluster-major form at batch 16384")
         check(db.index.options.rerank == "cuda" and db.index.options.refine == "scan",
               "the bare defaults must resolve to the probe kernel in scan mode")
+        for key, rec in probe_path_stages(torch, V, R, IC, db, queries, True, "").items():
+            forms[key] = {**forms.get(key, {}), **{f"path_{k}": v for k, v in rec.items()}}
         del db
         torch.cuda.empty_cache()
     finally:
@@ -1162,19 +1496,21 @@ def main() -> int:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
-    # phase 7: wave kernel parity and timing
-    wave_rec = wave_kernel_parity(torch, V, TX, device)
+    # phase 7: wave kernel parity and timing, both kernel forms
+    wave_forms = wave_kernel_parity(torch, V, TX, IC, device)
 
     # phase 8: the gather-refine path through the wave kernel
     tmp = tempfile.mkdtemp(prefix="zebra_smoke_refine_")
     try:
         cfg = zt.DatabaseConfig(dim=DIM, index=zt.IndexOptions(refine=4, rerank="pallas2"))
         R.LAUNCHES = 0
-        wave_launches, db, ids, _, _ = main_path(
+        wave_launches, db, ids, _, wave_by_form = main_path(
             torch, zt, V, tmp, base, queries, cfg, "refine ", (TX, "LAUNCHES_WAVE"))
         check(db.index.options.rerank == "cuda2" and R.LAUNCHES == 0,
               "refine=4 with rerank='pallas2' must run the wave kernel, never the probe kernel")
-        path_rec = refine_path_stages(torch, V, TX, db, ids, queries, scan_rows)
+        check(wave_by_form.get("int8/cluster", 0) > 0,
+              "the refine=4 path must run the cluster-major form at batch 16384")
+        path_recs = refine_path_stages(torch, V, TX, IC, db, ids, queries, scan_rows)
         del db, ids
         torch.cuda.empty_cache()
     finally:
@@ -1183,62 +1519,36 @@ def main() -> int:
     # phase 9: the augmented-slab surface
     aug_launches, aug_rec = aug_path(torch, V, TX, device)
 
-    # phase 10: the bf16 "balanced" tier through kernel 1's bf16 form
+    # phase 10: the bf16 "balanced" tier through kernel 1's bf16 forms
     tmp = tempfile.mkdtemp(prefix="zebra_smoke_balanced_")
     try:
         cfg = zt.DatabaseConfig(dim=DIM, index=zt.IndexOptions.tier("balanced"))
         bal_launches, db, _, _, bal_forms = main_path(
             torch, zt, V, tmp, base, queries, cfg, "balanced ", (R, "LAUNCHES"))
-        check(set(bal_forms) == {"bf16"}, "the balanced tier must launch only the bf16 form")
+        check({f.split("/")[0] for f in bal_forms} == {"bf16"},
+              "the balanced tier must launch only the bf16 slab form")
+        check(bal_forms.get("bf16/cluster", 0) > 0,
+              "the balanced path must run the cluster-major form at batch 16384")
         check(db.index.options.rerank == "cuda" and db.index.state.vectors.dtype == torch.bfloat16
               and db.index.state.scales is None,
               "the balanced tier must store a bf16 slab and run the probe kernel")
-        forms["bf16"] = {**forms["bf16"], **plain_path_stages(torch, V, R, db, queries)}
+        for key, rec in probe_path_stages(torch, V, R, IC, db, queries, False,
+                                          "balanced ").items():
+            forms[key] = {**forms.get(key, {}), **{f"path_{k}": v for k, v in rec.items()}}
         del db
         torch.cuda.empty_cache()
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     del data, base, queries
-    print(f"launches: ivf_rerank {launches} (int8 + residual) and {bal_launches} (bf16), "
-          f"lsh_rerank {lsh_run['launches']} (slab-major form {lsh_run['launches_slab']}), "
-          f"ivf_rerank_wave {wave_launches}, ivf_rerank_aug {aug_launches} over their paths; "
-          f"the whole run took {time.perf_counter() - t_start:.0f} s after the card check")
+    print(f"launches: ivf_rerank {launches} {scan_forms} (defaults) and {bal_launches} "
+          f"{bal_forms} (balanced), lsh_rerank {lsh_run['launches']} (slab-major form "
+          f"{lsh_run['launches_slab']}), ivf_rerank_wave {wave_launches} {wave_by_form}, "
+          f"ivf_rerank_aug {aug_launches} over their paths; the whole run took "
+          f"{time.perf_counter() - t_start:.0f} s after the card check")
 
-    def entry(name, replaces, n, r):
-        return {"name": name, "route": "cuda", "source": f"zebra_tpu_torch/csrc/{name}.cu",
-                "replaces": replaces, "launches": n, "max_abs_err": r["max_abs_err"],
-                "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                "bound_by": r["bound_by"],
-                # no single PyTorch call gathers, scores and selects per query
-                "library_ms": None}
-
-    # one TPU kernel, four slab forms: the entry's time is the int8 +
-    # residual form's on the synthetic state (as in earlier runs); the bf16
-    # form's is on the balanced path's own probes, the others' synthetic.
-    # A form's launches are those counted by form over phases 4 and 10
-    form_launches = {name: scan_forms.get(name, 0) + bal_forms.get(name, 0) for name in forms}
-    ivf_rec = {**forms["int8+residual"],
-               "max_abs_err": max(f["max_abs_err"] for f in forms.values())}
-    print(json.dumps({"kernels": [
-        {**entry("ivf_rerank", "zebra_tpu/ops/pallas_ivf.py:72", launches + bal_launches,
-                 ivf_rec),
-         "forms": {name: {"launches": form_launches[name], "ms": f["ms"],
-                          "plain_ms": f["plain_ms"], "bound_ms": f["bound_ms"],
-                          "bound_by": f["bound_by"]} for name, f in forms.items()}},
-        # one TPU kernel, two forms on the card: the entry's source and time
-        # are those of the slab-major form, which the path launched
-        {**entry("lsh_rerank_slab", "zebra_tpu/ops/pallas_rerank.py:48", lsh_run["launches"],
-                 {**lsh_run, "max_abs_err": max(lsh_rec["max_abs_err"], lsh_run["max_abs_err"])}),
-         "name": "lsh_rerank",
-         "forms": {"slab": {"source": "zebra_tpu_torch/csrc/lsh_rerank_slab.cu",
-                            "launches": lsh_run["launches_slab"], "ms": lsh_run["ms"]},
-                   "gather": {"source": "zebra_tpu_torch/csrc/lsh_rerank.cu",
-                              "launches": lsh_run["launches"] - lsh_run["launches_slab"],
-                              "ms": lsh_run["gather_ms"]}}},
-        entry("ivf_rerank_wave", "zebra_tpu/ops/experimental_ivf.py:34", wave_launches,
-              {**path_rec, "max_abs_err": max(wave_rec["max_abs_err"], path_rec["max_abs_err"])}),
-        entry("ivf_rerank_aug", "zebra_tpu/ops/experimental_ivf.py:178", aug_launches, aug_rec),
-    ]}))
+    print(json.dumps(kernels_record(
+        forms, scan_forms, bal_forms, launches + bal_launches, lsh_run, lsh_rec, wave_forms,
+        path_recs, wave_by_form, wave_launches, aug_launches, aug_rec)))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

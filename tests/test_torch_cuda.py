@@ -1,8 +1,9 @@
 """The torch port on a CUDA card: the hand-written kernels (IVF probe
 re-rank in its int8 + residual, plain int8, bf16 and f32 slab forms, LSH
 candidate re-rank in its gather and slab-major forms, one-slab wave re-rank,
-augmented-slab re-rank) against their plain versions, and the facade's paths
-through them, with no device given (the card is the default).
+the cluster-major form of the two IVF re-ranks, augmented-slab re-rank)
+against their plain versions, and the facade's paths through them, with no
+device given (the card is the default).
 
 Imports neither JAX nor the JAX package, so it runs where only torch is
 installed. Every test needs a card and skips without one; on the card:
@@ -26,6 +27,7 @@ import torch
 import zebra_tpu_torch as T
 from zebra_tpu_torch.index import ivf as TV
 from zebra_tpu_torch.ops import experimental_ivf as TX
+from zebra_tpu_torch.ops import ivf_cluster as IC
 from zebra_tpu_torch.ops import ivf_rerank as TR
 
 pytestmark = pytest.mark.cuda
@@ -74,17 +76,35 @@ def _check(got, want, q, metric):
     torch.testing.assert_close(d, rd, rtol=0, atol=1e-5 * scale)
 
 
+def _route(B, P, st, k, round_q=False):
+    return "cluster" if IC.takes_cluster_form(B, P, st.dim, st.cluster_capacity,
+                                              st.vectors.dtype, k, round_q) else "query"
+
+
+def _pin(monkeypatch, form):
+    """Pin the route: "cluster" takes every shape the cluster-major form
+    fits, "query" none, "auto" leaves the rule."""
+    if form != "auto":
+        value = 0 if form == "cluster" else 1 << 62
+        monkeypatch.setattr(IC, "MIN_PAIR_COLUMNS", {k: value for k in IC.MIN_PAIR_COLUMNS})
+
+
+@pytest.mark.parametrize("form", ["query", "auto"])
 @pytest.mark.parametrize("metric", ["cosine", "l2", "sql2"])
 @pytest.mark.parametrize("d", [768, 100, 1536])  # int4 path, byte path, 3 chunks/lane
-def test_kernel_matches_plain_version(cuda, metric, d):
+def test_kernel_matches_plain_version(cuda, metric, d, form, monkeypatch):
+    _pin(monkeypatch, form)
     st, x = _state(cuda, d)
     q = torch.from_numpy(x[:256] + 0.05).to(cuda)
     probes = TV.select_probes(st, q, 3, metric)
     probes[0, 0] = 0  # the fully tombstoned cluster
+    want_form = "query" if form == "query" else _route(256, 3, st, 10)
     for k in (10, 128):
-        before = TR.LAUNCHES
+        before, by_form = TR.LAUNCHES, dict(TR.LAUNCHES_BY_FORM)
         got = TR.ivf_rerank(st, q, probes, k, metric)
         assert TR.LAUNCHES == before + 1
+        key = f"int8+residual/{want_form}"
+        assert TR.LAUNCHES_BY_FORM == {**by_form, key: by_form.get(key, 0) + 1}
         _check(got, TR.ivf_rerank_reference(st, q, probes, k, metric), q, metric)
 
 
@@ -113,6 +133,7 @@ def test_kernel_slab_forms_match_plain_version(cuda, metric, dtype, d):
     probes = TV.select_probes(st, q, 4, metric)
     probes[0, 0] = 0  # the fully tombstoned cluster
     form = {torch.bfloat16: "bf16", torch.float32: "f32", torch.int8: "int8"}[dtype]
+    form += "/" + _route(256, 4, st, 10)
     for k in (10, 128):
         before, by_form = TR.LAUNCHES, dict(TR.LAUNCHES_BY_FORM)
         got = TR.ivf_rerank(st, q, probes, k, metric)
@@ -177,8 +198,10 @@ def test_plain_tiers_go_through_the_kernel(cuda, tmp_path, tier):
     before, by_form = TR.LAUNCHES, dict(TR.LAUNCHES_BY_FORM)
     top1 = db.query(x[:100], 1)
     assert TR.LAUNCHES > before
-    form = {"balanced": "bf16"}.get(tier, tier)
-    assert TR.LAUNCHES_BY_FORM[form] - by_form.get(form, 0) == TR.LAUNCHES - before
+    slab = {"balanced": "bf16"}.get(tier, tier)
+    grown = sum(n - by_form.get(key, 0) for key, n in TR.LAUNCHES_BY_FORM.items()
+                if key.split("/")[0] == slab)
+    assert grown == TR.LAUNCHES - before
     assert [row[0][0] for row in top1] == ids[:100]
     db.remove(ids[:10])
     db.save()
@@ -356,19 +379,25 @@ def _one_slab(st, dtype):
                                scales=None, residual=None, rscales=None)
 
 
+@pytest.mark.parametrize("form", ["query", "auto"])
 @pytest.mark.parametrize("metric", ["cosine", "l2", "sql2"])
 @pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("d", [768, 100])  # 16-byte chunks, element path
-def test_wave_kernel_matches_plain_version(cuda, metric, dtype, d):
+def test_wave_kernel_matches_plain_version(cuda, metric, dtype, d, form, monkeypatch):
+    _pin(monkeypatch, form)
     st, x = _state(cuda, d)
     st = _one_slab(st, dtype)
     q = torch.from_numpy(x[:256] + 0.05).to(cuda)
     probes = TV.select_probes(st, q, 3, metric)  # odd P: no padding is needed
     probes[0, 0] = 0  # the fully tombstoned cluster
+    slab = {torch.bfloat16: "bf16", torch.float32: "f32", torch.int8: "int8"}[dtype]
+    key = slab + "/" + ("query" if form == "query"
+                        else _route(256, 3, st, 10, round_q=dtype != torch.float32))
     for k in (10, 40, 128):
-        before = TX.LAUNCHES_WAVE
+        before, by_form = TX.LAUNCHES_WAVE, dict(TX.LAUNCHES_WAVE_BY_FORM)
         got = TX.ivf_rerank_wave(st, q, probes, k, metric)
         assert TX.LAUNCHES_WAVE == before + 1
+        assert TX.LAUNCHES_WAVE_BY_FORM == {**by_form, key: by_form.get(key, 0) + 1}
         _check(got, TX.ivf_rerank_wave_reference(st, q, probes, k, metric), q, metric)
 
 
@@ -423,6 +452,126 @@ def test_refine_facade_goes_through_the_wave_kernel(cuda, tmp_path):
     assert again.config.index.rerank == "pallas2"  # the manifest keeps the user's word
     assert len(again) == 4086
     assert [row[0][0] for row in again.query(x[10:100], 1)] == ids[10:100]
+
+
+# -- kernels 1 and 2, cluster-major form (csrc/ivf_rerank_cluster.cu) -----------
+
+
+CLUSTER_FORMS = ["int8+residual", "int8", "bf16", "wave int8", "wave bf16"]
+
+
+def _cluster_case(cuda, kind, d=768):
+    """A state of the form ``kind`` and its call / plain version pair."""
+    st, x = _state(cuda, d)
+    if kind == "int8":
+        st = _plain_slab(st, torch.int8)
+    elif kind == "bf16":
+        st = _plain_slab(st, torch.bfloat16)
+    elif kind.startswith("wave"):
+        st = _one_slab(st, torch.bfloat16 if kind.endswith("bf16") else torch.int8)
+        return st, x, (lambda *a, **kw: TX.ivf_rerank_wave(*a, **kw),
+                       TX.ivf_rerank_wave_reference, True)
+    return st, x, (lambda *a, **kw: TR.ivf_rerank(*a, **kw), TR.ivf_rerank_reference, False)
+
+
+@pytest.mark.parametrize("metric", ["cosine", "l2", "sql2"])
+@pytest.mark.parametrize("kind", CLUSTER_FORMS)
+@pytest.mark.parametrize("d", [768, 784, 128])  # whole chunks; a padded last chunk; one step
+def test_cluster_form_matches_plain_version(cuda, metric, kind, d, monkeypatch):
+    """The route pinned to the cluster-major form: P = 1..4 (repeated probes
+    included), a hot cluster that every query probes, the fully tombstoned
+    cluster, k up to 128."""
+    _pin(monkeypatch, "cluster")
+    st, x, (call, ref, _) = _cluster_case(cuda, kind, d)
+    mod, count = (TX, "LAUNCHES_WAVE") if kind.startswith("wave") else (TR, "LAUNCHES")
+    by_form = getattr(mod, count + "_BY_FORM")
+    q = torch.from_numpy(x[:300] + 0.05).to(cuda)
+    for P in (1, 2, 3, 4):
+        probes = TV.select_probes(st, q, P, metric)
+        probes[0] = 0  # only the fully tombstoned cluster
+        probes[1:, 0] = 5  # a hot cluster, split over many work items
+        if P > 2:
+            probes[2:50, 2] = probes[2:50, 1]  # a probe repeated within a query
+        for k in (10, 40, 128):
+            before = sum(n for f, n in by_form.items() if f.endswith("/cluster"))
+            got = call(st, q, probes, k, metric)
+            assert sum(n for f, n in by_form.items() if f.endswith("/cluster")) == before + 1
+            assert not bool(got[2][0].any())
+            _check(got, ref(st, q, probes, k, metric), q, metric)
+
+
+@pytest.mark.parametrize("kind", CLUSTER_FORMS)
+def test_cluster_kernels_match_their_plain_versions(cuda, kind):
+    """The items kernel against the plain work-item builder (equal), the
+    scoring kernel's buffer against its plain version, and the selection
+    kernel against its own on that buffer (equal)."""
+    st, x, (_, _, round_q) = _cluster_case(cuda, kind)
+    q = torch.from_numpy(x[:200] + 0.05).to(cuda)
+    probes = TV.select_probes(st, q, 4, "sql2").to(torch.int32)
+    probes[:100, 0] = 5  # a hot cluster
+    for nq in (8, 16):
+        got = IC.items(probes, st.num_clusters, nq)
+        want = IC.work_items(probes, st.num_clusters, nq)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    residual = kind == "int8+residual"
+    dist = IC.score(st, q, probes, "sql2", round_q, residual)
+    want = IC.score_reference(st, q, probes, "sql2", round_q, residual)
+    live = ~torch.isinf(want)
+    assert torch.equal(live, ~torch.isinf(dist))
+    scale = 2 * float((q * q).sum(-1).max())
+    torch.testing.assert_close(dist[live], want[live], rtol=0, atol=1e-5 * scale)
+    for k in (1, 10, 40, 128):
+        got = IC.select(dist, probes, st.cluster_capacity, k)
+        ref = IC.select_reference(dist, probes, st.cluster_capacity, k)
+        assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+
+
+def test_cluster_form_leaves_what_it_does_not_take(cuda, monkeypatch):
+    """With the route pinned to the cluster-major form, shapes it does not
+    fit (D % 16, f32 slabs) still run the per-query kernel."""
+    _pin(monkeypatch, "cluster")
+    for d, dtype in ((100, torch.int8), (128, torch.float32)):
+        st, x = _state(cuda, d)
+        if dtype == torch.float32:
+            st = _plain_slab(st, dtype)
+        q = torch.from_numpy(x[:64]).to(cuda)
+        probes = TV.select_probes(st, q, 2, "cosine")
+        before, by_form = TR.LAUNCHES, dict(TR.LAUNCHES_BY_FORM)
+        got = TR.ivf_rerank(st, q, probes, 10)
+        grown = {f: n - by_form.get(f, 0) for f, n in TR.LAUNCHES_BY_FORM.items()
+                 if n != by_form.get(f, 0)}
+        assert TR.LAUNCHES == before + 1 and list(grown)[0].endswith("/query")
+        _check(got, TR.ivf_rerank_reference(st, q, probes, 10), q, "cosine")
+
+
+TIER_CONFIGS = {"defaults": T.IndexOptions(), "refine": T.IndexOptions(refine=4, rerank="pallas2"),
+                "balanced": T.IndexOptions.tier("balanced")}
+
+
+@pytest.mark.parametrize("tier", list(TIER_CONFIGS))
+def test_facade_tiers_take_the_cluster_form(cuda, tmp_path, tier, monkeypatch):
+    """Each IVF tier through the facade at a batch the route sends to the
+    cluster-major form: every re-rank launch is of that form, and the
+    answers hold against the same queries through the per-query form."""
+    x = _blobs(13, 6000, 128)
+    db = T.Database.create(str(tmp_path / "t.zebra"),
+                           T.DatabaseConfig(dim=128, index=TIER_CONFIGS[tier]))
+    db.insert_vectors(x)
+    P = db.index.options.resolved_probes()
+    dtype = db.index.state.vectors.dtype
+    B = -(-IC.MIN_PAIR_COLUMNS[dtype] // (P * IC.padded_dim(128)))
+    qs = np.resize(x, (B, 128))  # the stored rows, over and over
+    mod, count = (TX, "LAUNCHES_WAVE") if tier == "refine" else (TR, "LAUNCHES")
+    by_form = getattr(mod, count + "_BY_FORM")
+    before, forms = getattr(mod, count), dict(by_form)
+    _, got, _ = db.index.search_arrays(qs, 10)
+    n = getattr(mod, count) - before
+    assert n > 0
+    assert sum(v - forms.get(k, 0) for k, v in by_form.items() if k.endswith("/cluster")) == n
+    _pin(monkeypatch, "query")  # every batch to the per-query form
+    _, want, _ = db.index.search_arrays(qs, 10)
+    assert float((got[:, 0] == want[:, 0]).mean()) >= 0.999
+    assert float((got == want).mean()) >= 0.99
 
 
 # -- kernel 3: the augmented-slab re-rank (csrc/ivf_rerank_aug.cu) --------------

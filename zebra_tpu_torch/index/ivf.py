@@ -49,6 +49,8 @@ class IVFState:
     residual: torch.Tensor | None = None  # [K*C + G, D] int8 (refined int8)
     rscales: torch.Tensor | None = None  # [K*C + G] f32
     ccap: int = 0  # cluster block width C
+    #: (centroids, bf16 centroids, |c|^2) for select_probes, see probe_operands
+    probe_cache: tuple | None = dataclasses.field(default=None, repr=False, compare=False)
 
     @property
     def num_clusters(self) -> int:
@@ -328,49 +330,93 @@ def delete_slots(state: IVFState, slots: torch.Tensor) -> None:
     state.valid[s] = False
 
 
+def probe_operands(state: IVFState):
+    """``(bf16 centroids, |c|^2 in f32)`` of the state's centroids, cast once
+    and cached on the state. A state that replaces its ``centroids`` tensor
+    (every cold build and ``load`` makes a new state) recomputes them; the
+    centroids are never updated in place."""
+    cache = state.probe_cache
+    if cache is None or cache[0] is not state.centroids:
+        cents = state.centroids
+        cache = (cents, cents.to(torch.bfloat16), (cents * cents).sum(-1))
+        state.probe_cache = cache
+    return cache[1], cache[2]
+
+
 def select_probes(state: IVFState, q32: torch.Tensor, P: int, sel_metric: str,
                   probe_sel: str = "auto") -> torch.Tensor:
     """The ``P`` nearest clusters per query, ``[B, P]`` int64.
 
     "auto"/"fast" with K >= 128 and 2P < K: stage 1 ranks bf16-ROUNDED scores
-    built from bf16-rounded q and centroids with f32 accumulation (emulated:
-    round the operands, f32 matmul, round the scores) and keeps 2P; stage 2
-    rescores those in f32 and keeps P. Otherwise one f32 scoring pass.
-    Stage 1 uses ``torch.topk``: its tie order among equal bf16 scores is
-    unspecified, as ``approx_max_k``'s is.
+    built from bf16-rounded q and centroids with f32 accumulation and keeps
+    2P; stage 2 rescores those in f32 and keeps P. Otherwise one f32 scoring
+    pass. On the card stage 1's product is one bf16 tensor-core GEMM with an
+    f32 accumulator and f32 output (``torch.mm(..., out_dtype=float32)``, as
+    the reference's bf16 MXU pass); the CPU, which has no kernel for it,
+    multiplies the bf16 operands in f32 (the products are exact either way;
+    only the order of accumulation differs). The scale is applied in f32
+    before the one rounding of the scores to bf16, and ``torch.topk`` runs on
+    the bf16 scores: its tie order among equal scores is unspecified, as
+    ``approx_max_k``'s is.
     """
     K = state.num_clusters
-    cents = state.centroids
     if probe_sel in ("auto", "fast") and K >= 128 and 2 * P < K:
-        dot = q32.to(torch.bfloat16).float() @ cents.to(torch.bfloat16).float().T
-        cn2 = (cents * cents).sum(-1)
-        if sel_metric == "cosine":
-            s = dot * torch.rsqrt(torch.clamp(cn2, min=1e-30))[None, :]
-        else:  # l2 / sql2: same argmax ordering
-            s = 2.0 * dot - cn2[None, :]
-        cand = torch.topk(s.to(torch.bfloat16).float(), 2 * P, dim=1).indices
-        dots = torch.einsum("bd,bpd->bp", q32, cents[cand])
-        cn2c = cn2[cand]
-        if sel_metric == "cosine":
-            fs = dots * torch.rsqrt(torch.clamp(cn2c, min=1e-30))
-        else:
-            fs = 2.0 * dots - cn2c
-        _, ix = TK.smallest_k(-fs, P)
-        return torch.gather(cand, 1, ix)
-    _, probes = TK.smallest_k(D.pairwise(q32, cents, metric=sel_metric), P)
+        return rescore_probes(state, q32, probe_candidates(state, q32, 2 * P, sel_metric), P,
+                              sel_metric)
+    _, probes = TK.smallest_k(D.pairwise(q32, state.centroids, metric=sel_metric), P)
     return probes
 
 
-def _query_chunk_rows(state: IVFState, B: int, k: int, eager: bool, kk: int = 0) -> int:
+def probe_candidates(state: IVFState, q32: torch.Tensor, n: int, sel_metric: str,
+                     emulate: bool | None = None) -> torch.Tensor:
+    """Stage 1 of :func:`select_probes`: the ``n`` best clusters per query by
+    bf16-rounded scores, ``[B, n]`` int64. ``emulate`` (default: on the CPU)
+    multiplies the bf16 operands in f32 on the CUDA cores instead of the one
+    bf16 GEMM with an f32 accumulator (the plain version of the card's
+    stage 1)."""
+    cb, cn2 = probe_operands(state)
+    qb = q32.to(torch.bfloat16)
+    if emulate is None:
+        emulate = not qb.is_cuda
+    if emulate:
+        dot = qb.float() @ cb.float().T
+    else:
+        dot = torch.mm(qb, cb.T, out_dtype=torch.float32)
+    if sel_metric == "cosine":
+        s = dot * torch.rsqrt(torch.clamp(cn2, min=1e-30))[None, :]
+    else:  # l2 / sql2: same argmax ordering
+        s = 2.0 * dot - cn2[None, :]
+    return torch.topk(s.to(torch.bfloat16), n, dim=1).indices
+
+
+def rescore_probes(state: IVFState, q32: torch.Tensor, cand: torch.Tensor, P: int,
+                   sel_metric: str) -> torch.Tensor:
+    """Stage 2 of :func:`select_probes`: the ``P`` best of the candidate
+    clusters ``cand [B, n]`` by exact f32 scores."""
+    cents = state.centroids
+    _, cn2 = probe_operands(state)
+    dots = torch.einsum("bd,bpd->bp", q32, cents[cand])
+    cn2c = cn2[cand]
+    if sel_metric == "cosine":
+        fs = dots * torch.rsqrt(torch.clamp(cn2c, min=1e-30))
+    else:
+        fs = 2.0 * dots - cn2c
+    _, ix = TK.smallest_k(-fs, P)
+    return torch.gather(cand, 1, ix)
+
+
+def _query_chunk_rows(state: IVFState, B: int, k: int, eager: bool, kk: int = 0,
+                      probes: int = 0) -> int:
     """Queries per pass, bounding the per-pass transients: the [B, K] score
-    pair (8 B/row/cluster), under refine (``kk`` > k) the [B, kk, D] int8
-    residual gather and its f32 dot operand (3*kk*D bytes a row, the JAX
-    package's slack) and, on the eager path, one probe's [B, C, D] gather in
-    f32 plus its residual. The JAX package hard-codes a budget for a 16 GB
-    TPU; here it is a quarter of the device's free memory
-    (``torch.cuda.mem_get_info``), or 1 GiB on the CPU."""
+    pair (8 B/row/cluster), the cluster-major re-rank's [B, P*C] f32 distance
+    buffer and its sorted pairs and work items (~64 B a probe), under refine
+    (``kk`` > k) the [B, kk, D] int8 residual gather and its f32 dot operand
+    (3*kk*D bytes a row, the JAX package's slack) and, on the eager path, one
+    probe's [B, C, D] gather in f32 plus its residual. The JAX package
+    hard-codes a budget for a 16 GB TPU; here it is a quarter of the device's
+    free memory (``torch.cuda.mem_get_info``), or 1 GiB on the CPU."""
     kk = max(kk, k)
-    per_row = state.num_clusters * 8 + 64 * kk
+    per_row = state.num_clusters * 8 + 64 * kk + probes * (state.cluster_capacity * 4 + 64)
     if kk != k:
         per_row += 3 * kk * state.dim
     if eager:
@@ -416,7 +462,7 @@ def query(state: IVFState, q: torch.Tensor, k: int, metric: str = "cosine",
     use_kernel = rerank in ("cuda", "cuda2") and kk <= 128
     if rerank in ("cuda", "cuda2") and not use_kernel:
         EAGER_LARGE_K += 1
-    step = _query_chunk_rows(state, B, k, eager=not use_kernel, kk=kk)
+    step = _query_chunk_rows(state, B, k, eager=not use_kernel, kk=kk, probes=P)
     outs = []
     for s in range(0, B, step):
         q32 = q[s : s + step].float()

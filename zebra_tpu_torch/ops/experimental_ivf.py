@@ -8,8 +8,11 @@ kernel or raise (no fallback on the card):
 * :func:`ivf_rerank_wave` — the twin of ``pallas_ivf.ivf_rerank(..., wave=2)``,
   i.e. of ``experimental_ivf._kernel_factory_v2``: the coarse stage of the
   gather-refine query (``refine=N`` with ``rerank="pallas2"``), a re-rank of
-  ONE slab with a bf16-rounded query on int8 / bf16 slabs. Kernel:
-  ``csrc/ivf_rerank_wave.cu``, counted in :data:`LAUNCHES_WAVE`.
+  ONE slab with a bf16-rounded query on int8 / bf16 slabs. Kernels: the
+  per-query ``csrc/ivf_rerank_wave.cu``, or the cluster-major form
+  ``csrc/ivf_rerank_cluster.cu`` (int8 and bf16 slabs; ``ops/ivf_cluster.py``)
+  where ``ivf_cluster.takes_cluster_form`` takes the shape; counted in
+  :data:`LAUNCHES_WAVE` and by form in :data:`LAUNCHES_WAVE_BY_FORM`.
 * :func:`augment_slab`, :func:`aug_query`, :func:`aug_post`,
   :func:`rerank_aug_raw` and the adapter :func:`ivf_rerank_aug` — the twins
   of the functions of those names in ``experimental_ivf.py``
@@ -29,11 +32,13 @@ import torch
 
 from zebra_tpu_torch.ops import topk as TK
 from zebra_tpu_torch.ops.ivf_rerank import (_DTYPE_CODE, _METRIC_CODE, BIG, _ptr, check_launch,
-                                            collect, distance_from_parts, probe_rows,
-                                            ref_chunk, select_slots)
+                                            collect, count_launch, probe_distances,
+                                            probe_rows, ref_chunk, select_slots)
 
-#: launches of ``csrc/ivf_rerank_wave.cu`` since the last reset
+#: launches of the wave re-rank (either kernel form) since the last reset
 LAUNCHES_WAVE = 0
+#: the same launches by "<slab form>/<kernel form>" (``ivf_rerank.count_launch``)
+LAUNCHES_WAVE_BY_FORM: dict[str, int] = {}
 #: launches of ``csrc/ivf_rerank_aug.cu`` since the last reset
 LAUNCHES_AUG = 0
 #: augmentation lanes appended to the stored dim (``pallas_ivf.AUG``)
@@ -73,14 +78,8 @@ def ivf_rerank_wave_reference(state, q32: torch.Tensor, probes: torch.Tensor, k:
     out_d, out_s = [], []
     for s in range(0, B, step):
         pr = probes[s : s + step].long()
-        qq = _wave_query(state, q32[s : s + step])
-        rows = probe_rows(pr, C)
-        dot = torch.einsum("bd,bcd->bc", qq, state.vectors[rows].float())
-        if state.scales is not None:
-            dot = dot * state.scales[rows]
-        qn2 = (qq * qq).sum(-1, keepdim=True)
-        d = distance_from_parts(metric, dot, qn2, state.norms[rows])
-        d = torch.where(state.valid[rows], d, torch.full_like(d, BIG))
+        d = probe_distances(state, _wave_query(state, q32[s : s + step]), pr, metric,
+                            scan_residual=False)
         dk, sk = select_slots(d, pr, C, kk)
         out_d.append(dk)
         out_s.append(sk)
@@ -88,10 +87,13 @@ def ivf_rerank_wave_reference(state, q32: torch.Tensor, probes: torch.Tensor, k:
 
 
 def _launch_wave(state, q32: torch.Tensor, probes: torch.Tensor, k: int, metric: str):
-    """Launch ``csrc/ivf_rerank_wave.cu`` on the current stream (raises on
-    any input the kernel does not take, and when the launch fails)."""
+    """Launch ``csrc/ivf_rerank_wave.cu``, or the cluster-major form where
+    ``ivf_cluster.takes_cluster_form`` takes the shape, on the current
+    stream (raises on any input the kernels do not take, and when a launch
+    fails)."""
     global LAUNCHES_WAVE
     from zebra_tpu_torch.ops import _kernels
+    from zebra_tpu_torch.ops import ivf_cluster
 
     vec = state.vectors
     if vec.dtype not in _DTYPE_CODE:
@@ -118,6 +120,13 @@ def _launch_wave(state, q32: torch.Tensor, probes: torch.Tensor, k: int, metric:
     out_s = torch.empty((B, k), dtype=torch.int64, device=dev)
     if B == 0:
         return out_d, out_s, out_s >= 0
+    round_q = vec.dtype != torch.float32
+    if ivf_cluster.takes_cluster_form(B, P, D, C, vec.dtype, k, round_q):
+        res = ivf_cluster.cluster_rerank(state, q, pr, k, metric, round_q=round_q,
+                                         scan_residual=False)
+        LAUNCHES_WAVE += 1
+        count_launch(LAUNCHES_WAVE_BY_FORM, vec.dtype, False, cluster=True)
+        return res
     fn = _kernels.load("ivf_rerank_wave").zt_ivf_rerank_wave
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_void_p] * 5
@@ -125,12 +134,13 @@ def _launch_wave(state, q32: torch.Tensor, probes: torch.Tensor, k: int, metric:
     err = fn(
         _ptr(q), _ptr(pr), _ptr(state.counts), _ptr(vec), _DTYPE_CODE[vec.dtype],
         _ptr(state.scales), _ptr(state.norms), _ptr(state.valid), _ptr(out_d), _ptr(out_s),
-        B, P, C, D, k, _METRIC_CODE[metric], int(vec.dtype != torch.float32),
+        B, P, C, D, k, _METRIC_CODE[metric], int(round_q),
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
     )
     if err != 0:
         raise RuntimeError(f"ivf_rerank_wave kernel launch failed: cudaError {err}")
     LAUNCHES_WAVE += 1
+    count_launch(LAUNCHES_WAVE_BY_FORM, vec.dtype, False, cluster=False)
     return out_d, out_s, out_s >= 0
 
 
@@ -142,7 +152,9 @@ def ivf_rerank_wave(state, q32: torch.Tensor, probes: torch.Tensor, k: int,
     Returns ``(dists [B, k], slots [B, k], valid [B, k])`` with +inf / -1 /
     False for missing results. Any probe count is taken (the TPU kernel's
     even-P padding adds only masked rows). CPU tensors take
-    :func:`ivf_rerank_wave_reference`; CUDA tensors launch the kernel or raise.
+    :func:`ivf_rerank_wave_reference`; CUDA tensors launch a kernel or raise
+    (the per-query kernel or the cluster-major form, by
+    ``ivf_cluster.takes_cluster_form``).
     """
     if q32.is_cuda:
         return _launch_wave(state, q32, probes, k, metric)

@@ -9,11 +9,15 @@ Three things live here:
   +inf / -1 / False for missing results.
 * :func:`ivf_rerank_reference` — the plain torch version (CPU oracle, and
   what ``chip_smoke.py`` holds the kernel against on the card).
-* the CUDA launch of ``csrc/ivf_rerank.cu``, counted in :data:`LAUNCHES` and,
-  by slab form, in :data:`LAUNCHES_BY_FORM`.
+* the CUDA launch, in one of two forms chosen by
+  ``ivf_cluster.takes_cluster_form``: the per-query kernel
+  ``csrc/ivf_rerank.cu`` (every slab form), or the cluster-major form
+  ``csrc/ivf_rerank_cluster.cu`` (int8 with or without the residual, bf16;
+  ``ops/ivf_cluster.py``), counted in :data:`LAUNCHES` and, by slab and
+  kernel form, in :data:`LAUNCHES_BY_FORM`.
 
 Routing: a CPU query runs the plain version (``dots="highest"``, the grade
-the kernel computes); a CUDA query launches the kernel or raises — there is
+the kernels compute); a CUDA query launches a kernel or raises — there is
 no fallback on the card.
 """
 
@@ -27,7 +31,9 @@ from zebra_tpu_torch.ops import topk as TK
 
 #: kernel launches since the last reset (the main-path proof in chip_smoke.py)
 LAUNCHES = 0
-#: the same launches by slab form: "int8+residual", "int8", "bf16", "f32"
+#: the same launches by "<slab form>/<kernel form>": slab forms
+#: "int8+residual", "int8", "bf16", "f32"; kernel forms "query" (per-query
+#: kernel) and "cluster" (cluster-major form)
 LAUNCHES_BY_FORM: dict[str, int] = {}
 #: masked-candidate sentinel (pallas_ivf.BIG); rows at or above it are invalid
 BIG = 3.0e38
@@ -53,6 +59,13 @@ def _split_bf16(x32: torch.Tensor):
     hi = (x32.contiguous().view(torch.int32) & -65536).view(torch.float32)
     lo = (x32 - hi).to(torch.bfloat16).float()
     return hi, lo
+
+
+def count_launch(by_form: dict, slab_dtype, residual: bool, cluster: bool) -> None:
+    """Add one launch to ``by_form`` under ``"<slab form>/<kernel form>"``."""
+    form = (_FORM_NAME[slab_dtype] + ("+residual" if residual else "")
+            + ("/cluster" if cluster else "/query"))
+    by_form[form] = by_form.get(form, 0) + 1
 
 
 def ref_chunk(P: int, C: int, D: int) -> int:
@@ -119,38 +132,47 @@ def ivf_rerank_reference(state, q32: torch.Tensor, probes: torch.Tensor, k: int,
         raise ValueError(f"dots must be 'highest' or 'bf16x2f', got {dots!r}")
     C = state.cluster_capacity
     B, P = probes.shape
-    dev = q32.device
     kk = min(k, P * C)
     step = ref_chunk(P, C, state.dim)
     out_d, out_s = [], []
     for s in range(0, B, step):
         pr = probes[s : s + step].long()
-        qq = q32[s : s + step].float()
-        rows = probe_rows(pr, C)
-        qa, qb = (qq, None) if dots == "highest" else _split_bf16(qq)
-
-        def bdot(slab):
-            x = slab[rows].float()
-            d = torch.einsum("bd,bcd->bc", qa, x)
-            return d, x
-
-        hi, x8 = bdot(state.vectors)
-        if qb is not None:
-            hi = hi + torch.einsum("bd,bcd->bc", qb, x8)
-        del x8
-        dot = hi
-        if state.scales is not None:
-            dot = hi * state.scales[rows]
-        if scan_residual and state.residual is not None:
-            lo, _ = bdot(state.residual)
-            dot = dot + lo * state.rscales[rows]
-        qn2 = (qq * qq).sum(-1, keepdim=True)
-        d = distance_from_parts(metric, dot, qn2, state.norms[rows])
-        d = torch.where(state.valid[rows], d, torch.full_like(d, BIG))
+        d = probe_distances(state, q32[s : s + step], pr, metric, dots, scan_residual)
         dk, sk = select_slots(d, pr, C, kk)
         out_d.append(dk)
         out_s.append(sk)
-    return collect(out_d, out_s, B, k, kk, dev)
+    return collect(out_d, out_s, B, k, kk, q32.device)
+
+
+def probe_distances(state, q32: torch.Tensor, pr: torch.Tensor, metric: str = "cosine",
+                    dots: str = "highest", scan_residual: bool = True) -> torch.Tensor:
+    """The distances ``[b, P*C]`` of queries ``q32 [b, D]`` to every row of
+    their probed blocks ``pr [b, P]``, in flattened probe-axis order, BIG
+    where a row is not live (:func:`ivf_rerank_reference` without the
+    selection; ``dots`` and ``scan_residual`` as there)."""
+    C = state.cluster_capacity
+    qq = q32.float()
+    rows = probe_rows(pr.long(), C)
+    qa, qb = (qq, None) if dots == "highest" else _split_bf16(qq)
+
+    def bdot(slab):
+        x = slab[rows].float()
+        d = torch.einsum("bd,bcd->bc", qa, x)
+        return d, x
+
+    hi, x8 = bdot(state.vectors)
+    if qb is not None:
+        hi = hi + torch.einsum("bd,bcd->bc", qb, x8)
+    del x8
+    dot = hi
+    if state.scales is not None:
+        dot = hi * state.scales[rows]
+    if scan_residual and state.residual is not None:
+        lo, _ = bdot(state.residual)
+        dot = dot + lo * state.rscales[rows]
+    qn2 = (qq * qq).sum(-1, keepdim=True)
+    d = distance_from_parts(metric, dot, qn2, state.norms[rows])
+    return torch.where(state.valid[rows], d, torch.full_like(d, BIG))
 
 
 def check_launch(k: int, P: int, C: int, width: int) -> None:
@@ -172,10 +194,13 @@ def _ptr(t: torch.Tensor | None):
 
 def _launch(state, q32: torch.Tensor, probes: torch.Tensor, k: int, metric: str,
             scan_residual: bool = True):
-    """Launch ``csrc/ivf_rerank.cu`` on the current stream (raises on any
-    input the kernel does not take, and when the launch fails)."""
+    """Launch ``csrc/ivf_rerank.cu``, or the cluster-major form where
+    ``ivf_cluster.takes_cluster_form`` takes the shape, on the current
+    stream (raises on any input the kernels do not take, and when a launch
+    fails)."""
     global LAUNCHES
     from zebra_tpu_torch.ops import _kernels
+    from zebra_tpu_torch.ops import ivf_cluster
 
     vec = state.vectors
     if vec.dtype not in _DTYPE_CODE:
@@ -210,6 +235,12 @@ def _launch(state, q32: torch.Tensor, probes: torch.Tensor, k: int, metric: str,
     out_s = torch.empty((B, k), dtype=torch.int64, device=dev)
     if B == 0:
         return out_d, out_s, out_s >= 0
+    if ivf_cluster.takes_cluster_form(B, P, D, C, vec.dtype, k):
+        res_out = ivf_cluster.cluster_rerank(state, q, pr, k, metric, round_q=False,
+                                             scan_residual=res is not None)
+        LAUNCHES += 1
+        count_launch(LAUNCHES_BY_FORM, vec.dtype, res is not None, cluster=True)
+        return res_out
     lib = _kernels.load("ivf_rerank")
     fn = lib.zt_ivf_rerank
     fn.restype = ctypes.c_int
@@ -225,8 +256,7 @@ def _launch(state, q32: torch.Tensor, probes: torch.Tensor, k: int, metric: str,
     if err != 0:
         raise RuntimeError(f"ivf_rerank kernel launch failed: cudaError {err}")
     LAUNCHES += 1
-    form = _FORM_NAME[vec.dtype] + ("+residual" if res is not None else "")
-    LAUNCHES_BY_FORM[form] = LAUNCHES_BY_FORM.get(form, 0) + 1
+    count_launch(LAUNCHES_BY_FORM, vec.dtype, res is not None, cluster=False)
     return out_d, out_s, out_s >= 0
 
 
@@ -237,7 +267,9 @@ def ivf_rerank(state, q32: torch.Tensor, probes: torch.Tensor, k: int,
     ``scan_residual`` (``refine="scan"``) scores the full reconstruction when
     the state carries a residual slab; False scores the coarse slab alone.
     Returns ``(dists [B, k], slots [B, k], valid [B, k])``. CPU tensors take
-    :func:`ivf_rerank_reference`; CUDA tensors launch the kernel or raise.
+    :func:`ivf_rerank_reference`; CUDA tensors launch a kernel or raise (the
+    per-query kernel or the cluster-major form, by
+    ``ivf_cluster.takes_cluster_form``).
     """
     if q32.is_cuda:
         return _launch(state, q32, probes, k, metric, scan_residual)
