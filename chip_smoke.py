@@ -19,8 +19,10 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    plain versions; both forms timed in turns at B=1024 and B=16384; then the
    forms without a residual on the same synthetic state (plain int8 with
    scales, the coarse values as bf16 and as f32; P=4, three metrics, k=10
-   and 128, B=1024; the cluster-major form for int8 and bf16), each timed at
-   B=16384, P=4 beside its bound;
+   and 128, B=1024; the cluster-major form for int8 and bf16 at P=4/3 and a
+   hot cluster, k=10/128, and for f32 (3xTF32) at P=4/3/2 and a hot
+   cluster, k=10/40/128), each timed at B=16384, P=4 beside its bound, both
+   forms in turns;
 4. the IVF path at the library defaults: ``Database.create`` with
    ``DatabaseConfig(dim=768)``, ``insert_vectors`` of 1M rows, ``query`` in
    batches of 1024, recall@10 against the exact scan, self-retrieval,
@@ -52,9 +54,9 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    search beside the exact scan;
 7. one-slab wave kernel parity on the synthetic state of phase 3 (int8 with
    scales, bf16 and f32 slabs, three metrics, k=10/40/128, P=4 and an odd
-   P=3, B=1024) against the plain torch version, per-query form and (int8,
-   bf16) cluster-major form (also P=2 and a hot cluster), and both forms
-   timed in turns at B=1024 and 16384, P=4, k=40 on the int8 slab;
+   P=3, B=1024) against the plain torch version, per-query form and
+   cluster-major form (also P=2 and a hot cluster), and both forms timed in
+   turns at B=1024 and 16384, P=4, k=40 on the int8 and the f32 slab;
 8. the gather-refine path: ``DatabaseConfig(dim=768, index=IndexOptions(
    refine=4, rerank="pallas2"))`` through the same facade calls and checks as
    phase 4 (the wave kernel's launch count by form over it; the probe kernel
@@ -66,22 +68,35 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
 9. the augmented-slab surface at the same sizing (K=16384, C=128, D=768,
    P=4; all-live random rows with a share of tombstones; bf16, then f32):
    ``augment_slab`` -> ``ivf_rerank_aug`` driven as the JAX package's
-   ablation tool drives it (its launch count), then the kernel against its
-   plain version (three metrics, k=10/128, ``exact`` on and off, B=1024) and
-   both timed at B=1024 and B=16384;
+   ablation tool drives it, at B=1024 and B=16384, ``exact`` on and off
+   (its launch count by form: the route sends B=16384 to the cluster-major
+   form), each driven result held against the plain version on the same
+   inputs (every differing rank an f64-verified tie); then both kernel
+   forms against the plain version on the path's probes and on a hot
+   cluster (three metrics, k=10/128, ``exact`` on and off, B=1024), the
+   cluster-major form's scoring and selection kernels each against their
+   plain versions at B=1024 (a hot cluster) and B=16384, and both forms
+   timed in turns at B=1024 and B=16384, ``exact`` on and off, beside the
+   plain version and the bound;
 10. the bf16 "balanced" tier: ``DatabaseConfig(dim=768,
    index=IndexOptions.tier("balanced"))`` through the same facade calls and
    checks as phase 4 (the probe kernel's bf16 forms; their launch count
-   over the path), then, on the path's own probes, as phase 4.
+   over the path), then, on the path's own probes, as phase 4;
+11. the f32 tier: ``DatabaseConfig(dim=768,
+   index=IndexOptions(dtype="float32"))`` (f32 slab, P=4, f32 query wire)
+   through the same facade calls and checks as phase 4 (the probe kernel's
+   f32 forms; their launch count over the path), then, on the path's own
+   probes, as phase 4.
 
 Every IVF path must launch the cluster-major form (its batch-16384
-queries take it by ``ivf_cluster.takes_cluster_form``).
+queries take it by ``ivf_cluster.takes_cluster_form``). Phases 3, 9 and 11
+have no fallback: a kernel that fails to build or launch raises.
 
 A kernel's ``bound_ms`` is the larger of its distinct bytes (every input
 byte once, every output byte once) over 3.35 TB/s and its operations over
 the card's peak rate for their type, both counted from the timed inputs.
-The second-to-last line is the kernels' JSON record (``ivf_rerank``,
-``ivf_rerank_wave`` and ``lsh_rerank`` carry their ``forms``), the last line
+The second-to-last line is the kernels' JSON record (every kernel carries
+its ``forms``), the last line
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
 
@@ -485,23 +500,26 @@ def kernel_parity(torch, V, R, IC, device, B=1024, B_time=N_QUERIES):
               f"live rows moves {stream / 1e9:.2f} GB, {stream / ms / 1e9:.2f} TB/s")
         forms[f"{name}/query"] = {"max_abs_err": err_t, "ms": ms, "plain_ms": plain_ms,
                                   "bound_ms": bound, "bound_by": by}
-        if dtype != torch.float32:
-            cases = cluster_cases(torch, device, B, K, SEED + 30, (4, 3))
-            agree_c, err_c, swaps_c, n_c = cluster_form_parity(
-                torch,
-                lambda pr, k, m: in_form(IC, "cluster", lambda: R.ivf_rerank(s1, q, pr, k, m)),
-                lambda pr, k, m: R.ivf_rerank_reference(s1, q, pr, k, m),
-                lambda m: slab_d64(torch, s1, q, m), cases, (10, 128))
-            print(f"parity: ivf_rerank cluster-major form, {name} slab, P=4/3 and a hot cluster "
-                  f"x 3 metrics x k=10/128 ({n_c} cases), B={B}: worst slot agreement "
-                  f"{agree_c:.6f}, max abs err {err_c:.3g}; {swaps_c} differing ranks, all ties "
-                  f"(f64 gap <= {TIE_TOL})")
+        # the f32 form (3xTF32) over every probe width and k
+        Ps, ks = ((4, 3, 2), (10, 40, 128)) if dtype == torch.float32 else ((4, 3), (10, 128))
+        cases = cluster_cases(torch, device, B, K, SEED + 30, Ps)
+        agree_c, err_c, swaps_c, n_c = cluster_form_parity(
+            torch,
+            lambda pr, k, m: in_form(IC, "cluster", lambda: R.ivf_rerank(s1, q, pr, k, m)),
+            lambda pr, k, m: R.ivf_rerank_reference(s1, q, pr, k, m),
+            lambda m: slab_d64(torch, s1, q, m), cases, ks)
+        print(f"parity: ivf_rerank cluster-major form, {name} slab, P="
+              f"{'/'.join(map(str, Ps))} and a hot cluster x 3 metrics x k="
+              f"{'/'.join(map(str, ks))} ({n_c} cases), B={B}: worst slot agreement "
+              f"{agree_c:.6f}, max abs err {err_c:.3g}; {swaps_c} differing ranks, all ties "
+              f"(f64 gap <= {TIE_TOL})")
+        for Bt, pb in ((B, probes), (B_time, pt)):
             rq, rc = cluster_timing(
-                torch, IC, s1, qt, pt, 10, "cosine",
-                lambda f: in_form(IC, f, lambda: R.ivf_rerank(s1, qt, pt, 10, "cosine")), False,
-                False,
-                PEAK_F32, f"ivf_rerank {name} slab (synthetic)")
-            forms[f"{name}/cluster"] = {**rc, "max_abs_err": err_c, "plain_ms": plain_ms}
+                torch, IC, s1, qt[:Bt], pb, 10, "cosine",
+                lambda f: in_form(IC, f, lambda: R.ivf_rerank(s1, qt[:Bt], pb, 10, "cosine")),
+                False, False, PEAK_F32, f"ivf_rerank {name} slab (synthetic)")
+        forms[f"{name}/cluster"] = {**rc, "max_abs_err": err_c, "plain_ms": plain_ms,
+                                    "query_ms_in_turns": rq["ms"]}
         del s1
         torch.cuda.empty_cache()
     del st
@@ -528,8 +546,8 @@ def one_slab(torch, st, dtype):
 
 def wave_kernel_parity(torch, V, TX, IC, device, B=1024, B_time=N_QUERIES):
     """Phase 7: kernel 2 vs its plain version on the synthetic state, every
-    slab type, per-query form and (int8, bf16) cluster-major form, and both
-    forms timed in turns on the int8 slab at the refine path's shapes.
+    slab type, per-query form and cluster-major form, and both forms timed in
+    turns on the int8 and f32 slabs at the refine path's shapes.
     Returns the records by "<slab form>/<kernel form>"."""
     full = synthetic_state(torch, V, device)
     K = full.num_clusters
@@ -554,36 +572,43 @@ def wave_kernel_parity(torch, V, TX, IC, device, B=1024, B_time=N_QUERIES):
               f"k=10/40/128, B={B}: worst slot agreement {agree_t:.6f}, max abs err "
               f"{err_t:.3g}; {swaps_t} differing ranks, all ties (f64 gap <= {TIE_TOL})")
         recs[f"{name}/query"] = {"max_abs_err": err_t}
-        if dtype != torch.float32:
-            cases = cluster_cases(torch, device, B, K, SEED + 40, (4, 3, 2))
-            agree_c, err_c, swaps_c, n_c = cluster_form_parity(
-                torch, lambda pr, k, m: in_form(
-                    IC, "cluster", lambda: TX.ivf_rerank_wave(st, q, pr, k, m)),
-                lambda pr, k, m: TX.ivf_rerank_wave_reference(st, q, pr, k, m),
-                lambda m: slab_d64(torch, st, TX._wave_query(st, q), m), cases, (10, 40, 128))
-            print(f"parity: ivf_rerank_wave cluster-major form, {name} slab, P=4/3/2 and a hot "
-                  f"cluster x 3 metrics x k=10/40/128 ({n_c} cases), B={B}: worst slot "
-                  f"agreement {agree_c:.6f}, max abs err {err_c:.3g}; {swaps_c} differing "
-                  f"ranks, all ties (f64 gap <= {TIE_TOL})")
-            recs[f"{name}/cluster"] = {"max_abs_err": err_c}
+        cases = cluster_cases(torch, device, B, K, SEED + 40, (4, 3, 2))
+        agree_c, err_c, swaps_c, n_c = cluster_form_parity(
+            torch, lambda pr, k, m: in_form(
+                IC, "cluster", lambda: TX.ivf_rerank_wave(st, q, pr, k, m)),
+            lambda pr, k, m: TX.ivf_rerank_wave_reference(st, q, pr, k, m),
+            lambda m: slab_d64(torch, st, TX._wave_query(st, q), m), cases, (10, 40, 128))
+        print(f"parity: ivf_rerank_wave cluster-major form, {name} slab, P=4/3/2 and a hot "
+              f"cluster x 3 metrics x k=10/40/128 ({n_c} cases), B={B}: worst slot "
+              f"agreement {agree_c:.6f}, max abs err {err_c:.3g}; {swaps_c} differing "
+              f"ranks, all ties (f64 gap <= {TIE_TOL})")
+        recs[f"{name}/cluster"] = {"max_abs_err": err_c}
         if dtype != torch.int8:
             del st
             torch.cuda.empty_cache()
-    st = one_slab(torch, full, torch.int8)
-    qt = torch.randn((B_time, st.dim), generator=g, device=device)
-    for Bt in (B, B_time):
-        pt = synthetic_probes(torch, device, Bt, K, SEED + 7, P=4)
-        qc = qt[:Bt]
-        rq, rc = cluster_timing(
-            torch, IC, st, qc, pt, 40, "cosine",
-            lambda f: in_form(IC, f, lambda: TX.ivf_rerank_wave(st, qc, pt, 40, "cosine")), True,
-            False,
-            PEAK_BF16, "ivf_rerank_wave int8 (synthetic state)")
-    plain_ms = time_ms(torch, lambda: TX.ivf_rerank_wave_reference(st, qt, pt, 40, "cosine"), 2)
-    print(f"timing: ivf_rerank_wave B={B_time} P=4 k=40 int8 plain version {plain_ms:.3f} ms")
-    recs["int8/query"].update({**rq, "plain_ms": plain_ms})
-    recs["int8/cluster"].update({**rc, "plain_ms": plain_ms})
-    del st, full
+    # both forms in turns on the int8 slab (the refine path's) and the f32
+    # slab (whose route shares kernel 1's f32 threshold)
+    qt = torch.randn((B_time, full.dim), generator=g, device=device)
+    for name, dtype, peak in (("int8", torch.int8, PEAK_BF16), ("f32", torch.float32, PEAK_F32)):
+        st = one_slab(torch, full, dtype)
+        for Bt in (B, B_time):
+            pt = synthetic_probes(torch, device, Bt, K, SEED + 7, P=4)
+            qc = qt[:Bt]
+            rq, rc = cluster_timing(
+                torch, IC, st, qc, pt, 40, "cosine",
+                lambda f: in_form(IC, f, lambda: TX.ivf_rerank_wave(st, qc, pt, 40, "cosine")),
+                dtype != torch.float32, False, peak, f"ivf_rerank_wave {name} (synthetic state)")
+            if Bt == B:
+                b1024 = {"B1024_ms": rq["ms"]}, {"B1024_ms": rc["ms"]}
+        plain_ms = time_ms(torch, lambda: TX.ivf_rerank_wave_reference(st, qt, pt, 40, "cosine"),
+                           2)
+        print(f"timing: ivf_rerank_wave B={B_time} P=4 k=40 {name} plain version "
+              f"{plain_ms:.3f} ms")
+        recs[f"{name}/query"].update({**rq, **b1024[0], "plain_ms": plain_ms})
+        recs[f"{name}/cluster"].update({**rc, **b1024[1], "plain_ms": plain_ms})
+        del st
+        torch.cuda.empty_cache()
+    del full
     torch.cuda.empty_cache()
     return recs
 
@@ -638,8 +663,10 @@ def main_path(torch, zt, V, tmp, base, queries, cfg, tag, counter):
     _, exact, _ = V.brute_force(db.index.state, qt, 10, metric=db.index.metric)
     exact = exact.cpu().numpy()
     recall = float(np.mean([len(set(a) & set(b)) / 10 for a, b in zip(approx, exact)]))
+    stored = ("int8 + residual reconstruction" if db.index.state.residual is not None
+              else f"{str(db.index.state.vectors.dtype)[6:]} rows")
     print(f"{tag}recall@10: {recall:.4f} over 1024 held-out queries (vs the exact scan "
-          f"of the stored reconstruction)")
+          f"of the stored {stored})")
     check(recall >= MIN_RECALL, f"recall@10 {recall} < {MIN_RECALL}")
     if db.index.options.query_wire_is_bf16():
         # the index searched the queries rounded to bf16: split that rounding
@@ -735,7 +762,7 @@ def probe_selection_report(torch, V, st, qt, P, metric, tag):
 
 
 def probe_path_stages(torch, V, R, IC, db, queries, scan_residual, tag):
-    """Phases 4 and 10, after the facade run (these launches come after the
+    """Phases 4, 10 and 11, after the facade run (these launches come after the
     count was read): kernel 1's form of the tier on the path's own probes,
     both kernel forms against the plain version and timed in turns, probe
     selection new against plain, and the stages of one device query by CUDA
@@ -743,7 +770,7 @@ def probe_path_stages(torch, V, R, IC, db, queries, scan_residual, tag):
     B=16384."""
     idx = db.index
     st, metric, P = idx.state, idx.metric, idx.options.resolved_probes()
-    name = str(st.vectors.dtype)[6:].replace("bfloat16", "bf16") + (
+    name = R._FORM_NAME[st.vectors.dtype] + (
         "+residual" if scan_residual and st.residual is not None else "")
     recs = {}
     for B in (1024, queries.shape[0]):
@@ -1240,15 +1267,16 @@ def lsh_path(torch, zt, TB, LR, tmp, base, queries):
             "bound_by": lsh_bound[1]}
 
 
-def aug_path(torch, V, TX, device, K=16384, C=128, D=DIM, P=4, B=1024, B_time=N_QUERIES):
+def aug_path(torch, V, TX, IC, device, K=16384, C=128, D=DIM, P=4, B=1024, B_time=N_QUERIES):
     """Phase 9: the augmented-slab surface at the main path's sizing, on the
     synthetic state of the JAX package's ablation tool (random rows, every
     cluster full) with a tenth of the rows tombstoned so that the penalty
-    lane decides. Returns the launch count of the driven run and the bf16
-    kernel's record."""
-    launches, rec = 0, {}
+    lane decides. Returns the launch count of the driven run, its count by
+    form, and each form's record by "<slab>/<kernel form>" (times at
+    B=16384, exact=True, beside those at B=1024 and with exact=False)."""
+    launches, driven, forms = 0, {}, {}
     for dtype in (torch.bfloat16, torch.float32):
-        name = str(dtype)[6:]
+        name = "bf16" if dtype == torch.bfloat16 else "f32"
         g = torch.Generator(device=device).manual_seed(SEED + 8)
         vecs = torch.empty((K * C, D), dtype=dtype, device=device)
         norms = torch.empty((K * C,), device=device)
@@ -1272,80 +1300,149 @@ def aug_path(torch, V, TX, device, K=16384, C=128, D=DIM, P=4, B=1024, B_time=N_
               f"{tuple(aug.shape)} {aug.numel() * aug.element_size() / 1e9:.2f} GB, "
               f"{float(valid.float().mean()):.3f} live")
 
-        # the driven run: centroid top-P -> ivf_rerank_aug, f32 dots and one-pass
+        # the driven run: centroid top-P -> ivf_rerank_aug, f32 dots and
+        # one-pass, at B=1024 and B=16384 (the route picks the form), each
+        # result held against the plain version on the same inputs
+        slab = IC.AugSlab(aug, C)
+        driven_err = {}
         TX.LAUNCHES_AUG = 0
-        want_slots = TX.ivf_rerank_wave(st, q[:B], probes[:B], 10, "cosine")[1]
-        for exact in (True, False):
-            d, slots, ok = TX.ivf_rerank_aug(aug, C, q[:B], probes[:B], 10, "cosine", exact=exact)
-            torch.cuda.synchronize()
-            check(tuple(d.shape) == (B, 10) and bool(ok[1:].all()) and not bool(ok[0].any()),
-                  "aug re-rank: every query but the dead-cluster one has 10 results")
-            check(bool(torch.isfinite(d[ok]).all()) and bool(valid[slots[ok]].all()),
-                  "aug re-rank returned a dead row or a non-finite distance")
-            overlap = float((slots[1:, :, None] == want_slots[1:, None, :]).any(-1).float().mean())
-            print(f"aug path ({name}, exact={exact}): top-10 overlap with the one-slab re-rank "
-                  f"of the raw slab {overlap:.4f}")
-            check(overlap >= 0.9, f"aug re-rank disagrees with the raw slab's: {overlap}")
+        TX.LAUNCHES_AUG_BY_FORM.clear()
+        for Bt in (B, B_time):
+            want_slots = TX.ivf_rerank_wave(st, q[:Bt], probes[:Bt], 10, "cosine")[1]
+            w = TX.aug_query(q[:Bt], "cosine")
+            for exact in (True, False):
+                got = TX.ivf_rerank_aug(aug, C, q[:Bt], probes[:Bt], 10, "cosine", exact=exact)
+                d, slots, ok = got
+                torch.cuda.synchronize()
+                check(tuple(d.shape) == (Bt, 10) and bool(ok[1:].all()) and not bool(ok[0].any()),
+                      "aug re-rank: every query but the dead-cluster one has 10 results")
+                check(bool(torch.isfinite(d[ok]).all()) and bool(valid[slots[ok]].all()),
+                      "aug re-rank returned a dead row or a non-finite distance")
+                form = "cluster" if slab.takes_cluster_form(
+                    Bt, P, 10, not exact and dtype == torch.bfloat16) else "query"
+                ww = TX._aug_w(aug, w, exact)  # the query as the kernels multiply it
+                want = TX.ivf_rerank_aug_reference(aug, C, q[:Bt], probes[:Bt], 10, "cosine",
+                                                   exact=exact)
+                agree, err, swaps, gap = hold(
+                    torch, got, want, lambda b, s: (aug[s].double() * ww[b].double()).sum(-1))
+                key = f"{name}/{form}"
+                driven_err[key] = max(driven_err.get(key, 0.0), err)
+                overlap = float((slots[1:, :, None] == want_slots[1:, None, :]).any(-1)
+                                .float().mean())
+                print(f"aug path ({name}, B={Bt}, exact={exact}, {form} form): against the "
+                      f"plain version slot agreement {agree:.6f}, max abs err {err:.3g}, "
+                      f"{swaps} differing ranks, all ties (f64 gap {gap:.3g} <= {TIE_TOL}); "
+                      f"top-10 overlap with the one-slab re-rank of the raw slab {overlap:.4f}")
+                check(overlap >= 0.9, f"aug re-rank disagrees with the raw slab's: {overlap}")
+                del got, d, slots, ok, want, ww
+            del want_slots, w
         launches += TX.LAUNCHES_AUG
-        check(TX.LAUNCHES_AUG == 2, "ivf_rerank_aug did not launch its kernel")
+        driven.update(TX.LAUNCHES_AUG_BY_FORM)
+        check(TX.LAUNCHES_AUG == 4, "ivf_rerank_aug did not launch its kernels")
+        check(TX.LAUNCHES_AUG_BY_FORM.get(f"{name}/cluster", 0) == 2,
+              "the aug re-rank at B=16384 must take the cluster-major form")
 
-        # kernel vs plain version on this state
-        worst_agree, worst_err, swaps_t = 1.0, 0.0, 0
+        # both forms vs the plain version on this state: the path's probes and
+        # a hot cluster that every query but query 0 probes first
+        hot = probes[:B].clone()
+        hot[1:, 0] = 7
+        cases = (("P=4", probes[:B]), ("P=4 hot cluster", hot))
+        worst = {f: (1.0, 0.0, 0) for f in ("query", "cluster")}
         for metric in ("cosine", "l2", "sql2"):
             if metric != "cosine":
-                del aug
+                del aug, slab
                 torch.cuda.empty_cache()
                 aug = TX.augment_slab(vecs, norms, valid, metric)
+                slab = IC.AugSlab(aug, C)
             w = TX.aug_query(q[:B], metric)
             for exact in (True, False):
-                ww = TX._aug_w(aug, w, exact)  # the query as the kernel multiplies it
+                ww = TX._aug_w(aug, w, exact)  # the query as the kernels multiply it
 
                 def d64(b, slot):
                     return (aug[slot].double() * ww[b].double()).sum(-1)
 
-                for k in (10, 128):
-                    got = TX.ivf_rerank_aug(aug, C, q[:B], probes[:B], k, metric, exact=exact)
-                    want = TX.ivf_rerank_aug_reference(aug, C, q[:B], probes[:B], k, metric,
-                                                       exact=exact)
-                    agree, err = compare(torch, got, want)
-                    check(agree >= MIN_SLOT_AGREEMENT,
-                          f"slot agreement {agree} < {MIN_SLOT_AGREEMENT}")
-                    check(not bool(got[2][0].any()), "query 0 probes only dead rows")
-                    swaps, _ = tie_gap(torch, got[1], want[1], d64)
-                    worst_agree, worst_err = min(worst_agree, agree), max(worst_err, err)
-                    swaps_t += swaps
-        print(f"parity: ivf_rerank_aug {name} slab, 3 metrics x exact on/off x k=10/128, "
-              f"B={B} P={P}: worst slot agreement {worst_agree:.6f}, max abs err "
-              f"{worst_err:.3g}; {swaps_t} differing ranks, all ties (f64 gap <= {TIE_TOL})")
+                for _, pr in cases:
+                    for k in (10, 128):
+                        want = TX.ivf_rerank_aug_reference(aug, C, q[:B], pr, k, metric,
+                                                           exact=exact)
+                        for form in ("query", "cluster"):
+                            got = in_form(IC, form, lambda: TX.ivf_rerank_aug(
+                                aug, C, q[:B], pr, k, metric, exact=exact))
+                            agree, err, swaps, _ = hold(torch, got, want, d64)
+                            check(not bool(got[2][0].any()), "query 0 probes only dead rows")
+                            a0, e0, s0 = worst[form]
+                            worst[form] = (min(a0, agree), max(e0, err), s0 + swaps)
+        for form, (agree, err, swaps) in worst.items():
+            print(f"parity: ivf_rerank_aug {name} slab, {form} form, the path's probes and a hot "
+                  f"cluster x 3 metrics x exact on/off x k=10/128, B={B} P={P}: worst slot "
+                  f"agreement {agree:.6f}, max abs err {err:.3g}; {swaps} differing ranks, all "
+                  f"ties (f64 gap <= {TIE_TOL})")
+            forms[f"{name}/{form}"] = {"max_abs_err": err}
+        for key, err in driven_err.items():
+            forms[key]["path_max_abs_err"] = err
+        del hot, cases
 
-        # timing on the sql2 slab left from the loop (same bytes for every metric)
+        # the cluster form's scoring and selection kernels alone (sql2 slab)
+        # at both batches, the hot cluster's at B=1024
+        for Bt in (B, B_time):
+            pr = probes[:Bt].to(torch.int32).contiguous()
+            if Bt == B:
+                pr[1:, 0] = 7
+            w = TX.aug_query(q[:Bt], "sql2").contiguous()
+            dist = IC.score_aug(slab, w, pr, False)
+            ref = IC.score_reference(slab, w, pr)
+            big = ref >= TX.BIG
+            check(torch.equal(big, dist >= TX.BIG) and bool((dist[big] == TX.BIG).all()),
+                  "aug scoring kernel: BIG on other entries")
+            check(bool(torch.allclose(dist[~big], ref[~big], rtol=RTOL, atol=ATOL)),
+                  "aug scoring kernel: raw dots beyond RTOL/ATOL")
+            got = IC.select(dist, pr, C, 128, positions=True)
+            check(all(torch.equal(a, b) for a, b in
+                      zip(got, IC.select_reference(dist, pr, C, 128, positions=True))),
+                  "aug selection kernel differs from its plain version")
+            print(f"parity: ivf_rerank_aug {name} cluster-major form's kernels alone, B={Bt}"
+                  f"{' (a hot cluster)' if Bt == B else ''}: scoring buffer within RTOL/ATOL "
+                  f"({int(big.sum())} BIG entries equal), selection equal")
+            del dist, ref, got, w, pr, big
+
+        # timing on the sql2 slab left from the loop (same bytes for every
+        # metric): both forms in turns, exact on and off
         for Bt in (B, B_time):
             args = (aug, C, q[:Bt], probes[:Bt], 10, "sql2")
-            ms = time_ms(torch, lambda: TX.ivf_rerank_aug(*args), 20 if Bt == B else 5)
-            ms1 = time_ms(torch, lambda: TX.ivf_rerank_aug(*args, exact=False),
-                          20 if Bt == B else 5)
+            reps = 20 if Bt == B else 5
+            t = {e: form_turns(torch, lambda f: in_form(IC, f, lambda: TX.ivf_rerank_aug(
+                *args, exact=e)), reps) for e in (True, False)}
             plain_ms = time_ms(torch, lambda: TX.ivf_rerank_aug_reference(*args), 2)
             blocks = int(torch.unique(probes[:Bt]).numel())
             Da, item = aug.shape[1], aug.element_size()
             n_bytes = blocks * C * Da * item + Bt * (Da * 4 + P * 4 + 10 * 8)
             bound, by = bound_ms(n_bytes, Bt * P * C * Da * 2, PEAK_F32)
-            print(f"timing: ivf_rerank_aug {name} B={Bt} P={P} C={C} D+128={Da} k=10: kernel "
-                  f"{ms:.3f} ms (exact), {ms1:.3f} ms (exact=False), plain {plain_ms:.3f} ms; "
+            print(f"timing: ivf_rerank_aug {name} B={Bt} P={P} C={C} D+128={Da} k=10, in turns "
+                  f"per-query/cluster/cluster/per-query: exact "
+                  f"{'/'.join(f'{x:.3f}' for x in t[True][2])} ms, exact=False "
+                  f"{'/'.join(f'{x:.3f}' for x in t[False][2])} ms; plain {plain_ms:.3f} ms; "
                   f"bound {bound:.3f} ms by {by} ({blocks} distinct blocks of {Bt * P} probes, "
-                  f"f32 rate); whole blocks per query are "
+                  f"f32 rate): per-query {bound / t[True][0]:.3f} of it, cluster "
+                  f"{bound / t[True][1]:.3f}; whole blocks per query are "
                   f"{Bt * P * C * Da * item / HBM_BYTES_S * 1e3:.3f} ms at 3.35 TB/s")
-            if dtype == torch.bfloat16 and Bt == B:
-                rec = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by}
-        rec["max_abs_err"] = max(worst_err, rec.get("max_abs_err", 0.0))
-        del st, vecs, norms, valid, aug, q, probes, args, w, ww
+            for i, form in enumerate(("query", "cluster")):
+                rec = forms[f"{name}/{form}"]
+                if Bt == B:
+                    rec.update({"B1024_ms": t[True][i], "B1024_exact_false_ms": t[False][i],
+                                "B1024_plain_ms": plain_ms, "B1024_bound_ms": bound})
+                else:
+                    rec.update({"ms": t[True][i], "exact_false_ms": t[False][i],
+                                "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by})
+        del st, vecs, norms, valid, aug, slab, q, probes, args, ww
         torch.cuda.empty_cache()
-    return launches, rec
+    return launches, driven, forms
 
 
-def kernels_record(forms, scan_forms, bal_forms, ivf_total, lsh_run, lsh_rec, wave_forms,
-                   path_recs, wave_by_form, wave_launches, aug_launches, aug_rec):
-    """The kernels' JSON record: one entry per TPU kernel; ``ivf_rerank``,
-    ``ivf_rerank_wave`` and ``lsh_rerank`` carry their ``forms``."""
+def kernels_record(forms, path_forms, ivf_total, lsh_run, lsh_rec, wave_forms, path_recs,
+                   wave_by_form, wave_launches, aug_launches, aug_by_form, aug_forms):
+    """The kernels' JSON record: one entry per TPU kernel, each with its
+    ``forms``. ``path_forms`` is the launch count by form of each path that
+    runs kernel 1."""
     source = {"query": "zebra_tpu_torch/csrc/ivf_rerank.cu",
               "cluster": "zebra_tpu_torch/csrc/ivf_rerank_cluster.cu"}
 
@@ -1358,15 +1455,14 @@ def kernels_record(forms, scan_forms, bal_forms, ivf_total, lsh_run, lsh_rec, wa
                 # no single PyTorch call gathers, scores and selects per query
                 "library_ms": None}
 
-    def form_records(recs, path_launches, wave=False):
+    def form_records(recs, path_launches, query_src=source["query"]):
         """each "<slab>/<kernel>" form: its source, launches over the paths,
         time, plain version's time and bound (synthetic state, and on the
         path's own probes where a path runs the slab form)"""
         out = {}
         for key, r in recs.items():
             kind = key.split("/")[1]
-            src = (source[kind] if kind == "cluster" or not wave
-                   else "zebra_tpu_torch/csrc/ivf_rerank_wave.cu")
+            src = source["cluster"] if kind == "cluster" else query_src
             out[key] = {"source": src, "launches": path_launches.get(key, 0),
                         **r}
         return out
@@ -1374,10 +1470,11 @@ def kernels_record(forms, scan_forms, bal_forms, ivf_total, lsh_run, lsh_rec, wa
     # kernel 1: the entry's numbers are those of the form the defaults path
     # launched most, on the synthetic state at B=16384 (as in earlier runs);
     # every form's, on the synthetic state and on its path's probes, under "forms"
-    ivf_launches = {**scan_forms}
-    for key, n in bal_forms.items():
-        ivf_launches[key] = ivf_launches.get(key, 0) + n
-    main_form = max(scan_forms, key=scan_forms.get)
+    ivf_launches = {}
+    for by_form in path_forms:
+        for key, n in by_form.items():
+            ivf_launches[key] = ivf_launches.get(key, 0) + n
+    main_form = max(path_forms[0], key=path_forms[0].get)
     ivf_rec = {**forms[main_form], "max_abs_err": max(
         max(f.get("max_abs_err", 0.0), f.get("path_max_abs_err", 0.0)) for f in forms.values())}
     # kernel 2: the refine path's probes at B=16384, the form it launched most
@@ -1403,8 +1500,14 @@ def kernels_record(forms, scan_forms, bal_forms, ivf_total, lsh_run, lsh_rec, wa
                               "ms": lsh_run["gather_ms"]}}},
         {**entry("ivf_rerank_wave", "zebra_tpu/ops/experimental_ivf.py:34", wave_launches,
                  wave_rec, source["cluster"] if wave_main.endswith("cluster") else None),
-         "forms": form_records(wave_forms, wave_by_form, wave=True)},
-        entry("ivf_rerank_aug", "zebra_tpu/ops/experimental_ivf.py:178", aug_launches, aug_rec),
+         "forms": form_records(wave_forms, wave_by_form,
+                               "zebra_tpu_torch/csrc/ivf_rerank_wave.cu")},
+        # kernel 3: the entry's numbers are the redesigned form's, bf16 at
+        # B=16384 (the driven run launched both forms equally often)
+        {**entry("ivf_rerank_aug", "zebra_tpu/ops/experimental_ivf.py:178", aug_launches,
+                 {**aug_forms["bf16/cluster"], "max_abs_err": max(
+                     r["max_abs_err"] for r in aug_forms.values())}, source["cluster"]),
+         "forms": form_records(aug_forms, aug_by_form, "zebra_tpu_torch/csrc/ivf_rerank_aug.cu")},
     ]}
 
 
@@ -1516,8 +1619,8 @@ def main() -> int:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
-    # phase 9: the augmented-slab surface
-    aug_launches, aug_rec = aug_path(torch, V, TX, device)
+    # phase 9: the augmented-slab surface, both kernel forms
+    aug_launches, aug_by_form, aug_forms = aug_path(torch, V, TX, IC, device)
 
     # phase 10: the bf16 "balanced" tier through kernel 1's bf16 forms
     tmp = tempfile.mkdtemp(prefix="zebra_smoke_balanced_")
@@ -1539,16 +1642,39 @@ def main() -> int:
         torch.cuda.empty_cache()
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+    # phase 11: the f32 tier through kernel 1's f32 forms
+    tmp = tempfile.mkdtemp(prefix="zebra_smoke_f32_")
+    try:
+        cfg = zt.DatabaseConfig(dim=DIM, index=zt.IndexOptions(dtype="float32"))
+        f32_launches, db, _, _, f32_forms = main_path(
+            torch, zt, V, tmp, base, queries, cfg, "f32 ", (R, "LAUNCHES"))
+        check({f.split("/")[0] for f in f32_forms} == {"f32"},
+              "the f32 tier must launch only the f32 slab form")
+        check(f32_forms.get("f32/cluster", 0) > 0,
+              "the f32 path must run the cluster-major form at batch 16384")
+        check(db.index.options.rerank == "cuda" and db.index.state.vectors.dtype == torch.float32
+              and db.index.state.scales is None and db.index.options.resolved_probes() == 4
+              and not db.index.options.query_wire_is_bf16(),
+              "the f32 tier must store an f32 slab, probe 4 blocks and ship f32 queries")
+        for key, rec in probe_path_stages(torch, V, R, IC, db, queries, False, "f32 ").items():
+            forms[key] = {**forms.get(key, {}), **{f"path_{k}": v for k, v in rec.items()}}
+        del db
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     del data, base, queries
-    print(f"launches: ivf_rerank {launches} {scan_forms} (defaults) and {bal_launches} "
-          f"{bal_forms} (balanced), lsh_rerank {lsh_run['launches']} (slab-major form "
-          f"{lsh_run['launches_slab']}), ivf_rerank_wave {wave_launches} {wave_by_form}, "
-          f"ivf_rerank_aug {aug_launches} over their paths; the whole run took "
+    print(f"launches: ivf_rerank {launches} {scan_forms} (defaults), {bal_launches} "
+          f"{bal_forms} (balanced) and {f32_launches} {f32_forms} (f32), lsh_rerank "
+          f"{lsh_run['launches']} (slab-major form {lsh_run['launches_slab']}), "
+          f"ivf_rerank_wave {wave_launches} {wave_by_form}, ivf_rerank_aug {aug_launches} "
+          f"{aug_by_form} over their paths; the whole run took "
           f"{time.perf_counter() - t_start:.0f} s after the card check")
 
     print(json.dumps(kernels_record(
-        forms, scan_forms, bal_forms, launches + bal_launches, lsh_run, lsh_rec, wave_forms,
-        path_recs, wave_by_form, wave_launches, aug_launches, aug_rec)))
+        forms, (scan_forms, bal_forms, f32_forms), launches + bal_launches + f32_launches,
+        lsh_run, lsh_rec, wave_forms, path_recs, wave_by_form, wave_launches, aug_launches,
+        aug_by_form, aug_forms)))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

@@ -259,7 +259,7 @@ def test_emulation_matches_pallas_wave(rng, interp_kernel, metric, kind):
 
 
 def test_route_rule():
-    for dtype in (torch.int8, torch.bfloat16):
+    for dtype in (torch.int8, torch.bfloat16, torch.float32):
         B = -(-IC.MIN_PAIR_COLUMNS[dtype] // (4 * 768))  # at the slab type's threshold
         assert IC.takes_cluster_form(B, 4, 768, 128, dtype, 10)
         assert IC.takes_cluster_form(B, 4, 768, 128, dtype, 40, round_q=True)
@@ -270,9 +270,11 @@ def test_route_rule():
         assert not IC.takes_cluster_form(B, 4, 768, 128, dtype, 129)  # k
     # the bf16 form needs the larger batch
     assert IC.MIN_PAIR_COLUMNS[torch.bfloat16] > IC.MIN_PAIR_COLUMNS[torch.int8]
-    assert not IC.takes_cluster_form(10**6, 4, 768, 128, torch.float32, 10)  # f32 slab
+    # f32 slabs take the cluster-major form too (3xTF32), from their own threshold
+    assert IC.takes_cluster_form(10**6, 4, 768, 128, torch.float32, 10)
+    assert not IC.takes_cluster_form(10**6, 4, 768, 128, torch.float16, 10)  # no f16 form
     # a D whose staged query rows do not fit in shared memory
-    assert IC.fits_smem(768, torch.int8, 3, residual=True)
+    assert IC.fits_smem(768, torch.int8, IC.DIGITS)
     assert IC.fits_smem(4096, torch.bfloat16, 1)
     assert not IC.fits_smem(8192, torch.bfloat16, 3)
     assert not IC.fits_cluster_form(4, 8192, 128, torch.bfloat16, 10)

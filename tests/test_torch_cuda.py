@@ -1,7 +1,8 @@
 """The torch port on a CUDA card: the hand-written kernels (IVF probe
 re-rank in its int8 + residual, plain int8, bf16 and f32 slab forms, LSH
 candidate re-rank in its gather and slab-major forms, one-slab wave re-rank,
-the cluster-major form of the two IVF re-ranks, augmented-slab re-rank)
+augmented-slab re-rank, and the cluster-major form of the three IVF
+re-ranks: int8, bf16 and f32 slabs, augmented bf16 and f32 slabs)
 against their plain versions, and the facade's paths through them, with no
 device given (the card is the default).
 
@@ -61,7 +62,7 @@ def _state(device, d, n=3000, K=32, C=128, seed=0):
     return st, x
 
 
-def _check(got, want, q, metric):
+def _check(got, want, q, metric, rtol=0.0):
     (d, s, v), (rd, rs, rv) = got, want
     assert torch.equal(v, rv)
     assert bool((s[~v] == -1).all()) and bool(torch.isinf(d[~v]).all())
@@ -73,7 +74,7 @@ def _check(got, want, q, metric):
     if metric == "l2":
         d, rd = d * d, rd * rd
     scale = 2 * float((q * q).sum(-1).max())
-    torch.testing.assert_close(d, rd, rtol=0, atol=1e-5 * scale)
+    torch.testing.assert_close(d, rd, rtol=rtol, atol=1e-5 * scale)
 
 
 def _route(B, P, st, k, round_q=False):
@@ -457,20 +458,20 @@ def test_refine_facade_goes_through_the_wave_kernel(cuda, tmp_path):
 # -- kernels 1 and 2, cluster-major form (csrc/ivf_rerank_cluster.cu) -----------
 
 
-CLUSTER_FORMS = ["int8+residual", "int8", "bf16", "wave int8", "wave bf16"]
+CLUSTER_FORMS = ["int8+residual", "int8", "bf16", "f32", "wave int8", "wave bf16", "wave f32"]
 
 
 def _cluster_case(cuda, kind, d=768):
     """A state of the form ``kind`` and its call / plain version pair."""
     st, x = _state(cuda, d)
-    if kind == "int8":
-        st = _plain_slab(st, torch.int8)
-    elif kind == "bf16":
-        st = _plain_slab(st, torch.bfloat16)
-    elif kind.startswith("wave"):
-        st = _one_slab(st, torch.bfloat16 if kind.endswith("bf16") else torch.int8)
+    dtype = {"int8": torch.int8, "bf16": torch.bfloat16, "f32": torch.float32}.get(
+        kind.split()[-1])
+    if kind.startswith("wave"):
+        st = _one_slab(st, dtype)
         return st, x, (lambda *a, **kw: TX.ivf_rerank_wave(*a, **kw),
-                       TX.ivf_rerank_wave_reference, True)
+                       TX.ivf_rerank_wave_reference, dtype != torch.float32)
+    if dtype is not None:
+        st = _plain_slab(st, dtype)
     return st, x, (lambda *a, **kw: TR.ivf_rerank(*a, **kw), TR.ivf_rerank_reference, False)
 
 
@@ -528,14 +529,15 @@ def test_cluster_kernels_match_their_plain_versions(cuda, kind):
 
 def test_cluster_form_leaves_what_it_does_not_take(cuda, monkeypatch):
     """With the route pinned to the cluster-major form, shapes it does not
-    fit (D % 16, f32 slabs) still run the per-query kernel."""
+    fit (D % 16; an f32 slab probed over P*C > 2048 rows) still run the
+    per-query kernel."""
     _pin(monkeypatch, "cluster")
-    for d, dtype in ((100, torch.int8), (128, torch.float32)):
+    for d, dtype, P in ((100, torch.int8, 2), (128, torch.float32, 17)):
         st, x = _state(cuda, d)
         if dtype == torch.float32:
             st = _plain_slab(st, dtype)
         q = torch.from_numpy(x[:64]).to(cuda)
-        probes = TV.select_probes(st, q, 2, "cosine")
+        probes = TV.select_probes(st, q, P, "cosine")
         before, by_form = TR.LAUNCHES, dict(TR.LAUNCHES_BY_FORM)
         got = TR.ivf_rerank(st, q, probes, 10)
         grown = {f: n - by_form.get(f, 0) for f, n in TR.LAUNCHES_BY_FORM.items()
@@ -545,7 +547,8 @@ def test_cluster_form_leaves_what_it_does_not_take(cuda, monkeypatch):
 
 
 TIER_CONFIGS = {"defaults": T.IndexOptions(), "refine": T.IndexOptions(refine=4, rerank="pallas2"),
-                "balanced": T.IndexOptions.tier("balanced")}
+                "balanced": T.IndexOptions.tier("balanced"),
+                "f32": T.IndexOptions(dtype="float32")}
 
 
 @pytest.mark.parametrize("tier", list(TIER_CONFIGS))
@@ -610,3 +613,86 @@ def test_aug_kernel_refuses_what_it_does_not_take(cuda):
         TX.ivf_rerank_aug(aug, st.cluster_capacity, q, probes, 129)
     with pytest.raises(ValueError, match="f32 or bf16"):
         TX.ivf_rerank_aug(aug.half(), st.cluster_capacity, q, probes, 10)
+
+
+#: relative tolerance of the aug tests' l2 / sql2 distances, on top of the
+#: usual atol: it decides only at the planted row of :func:`_aug_sentinel`
+#: (|d| ~ 1e6, where two f32 sum orders differ by ~3e-7 of it)
+AUG_RTOL = 2e-6
+
+
+def _aug_sentinel(st, x, q, metric):
+    """``st``'s augmented slab with, in cluster 3, a live row with a large
+    dot against query 1 (l2 / sql2: -2 q.v large and negative) next to a dead
+    row with a larger one; query 1 probes cluster 3."""
+    C = st.cluster_capacity
+    st.vectors[3 * C + 4] = (40.0 * q[1]).to(st.vectors.dtype)
+    st.vectors[3 * C + 5] = (80.0 * q[1]).to(st.vectors.dtype)
+    st.valid[3 * C + 4], st.valid[3 * C + 5] = True, False
+    st.norms.copy_((st.vectors.float() ** 2).sum(-1))
+    return TX.augment_slab(st.vectors, st.norms, st.valid, metric)
+
+
+@pytest.mark.parametrize("metric", ["cosine", "l2", "sql2"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("exact", [True, False])
+@pytest.mark.parametrize("d", [768, 128])  # the main path's width; one step a tile
+def test_aug_cluster_form_matches_plain_version(cuda, metric, dtype, exact, d, monkeypatch):
+    """Kernel 3's cluster-major form, the route pinned to it: P = 2 and 4, a
+    hot cluster, the fully tombstoned cluster, k up to 128, and the sentinel
+    case (a dead row beside a row with a large dot is never returned)."""
+    _pin(monkeypatch, "cluster")
+    st, x = _state(cuda, d)
+    st = _one_slab(st, dtype)
+    q = torch.from_numpy(x[:300] + 0.05).to(cuda)
+    aug = _aug_sentinel(st, x, q, metric)
+    C = st.cluster_capacity
+    for P in (2, 4):
+        probes = TV.select_probes(st, q, P, metric)
+        probes[0] = 0  # only the fully tombstoned cluster
+        probes[2:, 0] = 5  # a hot cluster
+        probes[1, 0] = 3
+        for k in (10, 40, 128):
+            before, by_form = TX.LAUNCHES_AUG, dict(TX.LAUNCHES_AUG_BY_FORM)
+            got = TX.ivf_rerank_aug(aug, C, q, probes, k, metric, exact=exact)
+            key = ("f32" if dtype == torch.float32 else "bf16") + "/cluster"
+            assert TX.LAUNCHES_AUG == before + 1
+            assert TX.LAUNCHES_AUG_BY_FORM == {**by_form, key: by_form.get(key, 0) + 1}
+            assert not bool(got[2][0].any())
+            assert not bool((got[1][1] == 3 * C + 5).any())  # the dead row
+            assert bool(torch.isfinite(got[0][got[2]]).all())
+            if metric == "cosine":
+                assert int(got[1][1, 0]) == 3 * C + 4
+            # the large row's l2 / sql2 distance (~1e6) is held to f32 rounding
+            # of its own size (rtol); every other distance to the usual atol
+            _check(got, TX.ivf_rerank_aug_reference(aug, C, q, probes, k, metric, exact=exact),
+                   q, metric, rtol=AUG_RTOL)
+
+
+@pytest.mark.parametrize("dtype,round_q", [(torch.float32, False), (torch.bfloat16, False),
+                                            (torch.bfloat16, True)])
+def test_aug_cluster_kernels_match_their_plain_versions(cuda, dtype, round_q):
+    """The scoring kernel's aug buffer against its plain version (BIG on the
+    same entries, the raw dots within the tolerance) and the selection
+    kernel's positions against its own on that buffer (equal). An f32 slab
+    multiplies the f32 query either way (exact=False rounds it to f32)."""
+    st, x = _state(cuda, 768)
+    st = _one_slab(st, dtype)
+    q = torch.from_numpy(x[:200] + 0.05).to(cuda)
+    aug = _aug_sentinel(st, x, q, "sql2")
+    C = st.cluster_capacity
+    w = TX.aug_query(q, "sql2").contiguous()
+    probes = TV.select_probes(st, q, 4, "sql2").to(torch.int32)
+    probes[:100, 0] = 5  # a hot cluster
+    probes[1, 0] = 3
+    slab = IC.AugSlab(aug, C)
+    dist = IC.score_aug(slab, w, probes, round_q)
+    want = IC.score_reference(slab, w, probes, round_q=round_q)
+    big = want >= TR.BIG
+    assert torch.equal(big, dist >= TR.BIG) and bool((dist[big] == TR.BIG).all())
+    scale = 2 * float((q * q).sum(-1).max())
+    torch.testing.assert_close(dist[~big], want[~big], rtol=AUG_RTOL, atol=1e-5 * scale)
+    for k in (1, 10, 40, 128):
+        got = IC.select(dist, probes, C, k, positions=True)
+        ref = IC.select_reference(dist, probes, C, k, positions=True)
+        assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])

@@ -6,14 +6,17 @@
 //
 // Replaces, beside the per-query kernels that keep every other shape:
 //   zebra_tpu/ops/pallas_ivf.py:72 (_kernel_factory), as csrc/ivf_rerank.cu
-//     does, on int8 slabs with scales (with or without the residual scan)
-//     and on bf16 slabs, with the f32 query;
+//     does, on int8 slabs with scales (with or without the residual scan),
+//     on bf16 slabs and on f32 slabs, with the f32 query;
 //   zebra_tpu/ops/experimental_ivf.py:34 (_kernel_factory_v2), as
-//     csrc/ivf_rerank_wave.cu does, on int8 + scales and bf16 slabs, with
-//     the query rounded to bf16 (round_q).
-// Reached through zebra_tpu_torch/ops/ivf_cluster.py::cluster_rerank, which
-// the wrappers ops/ivf_rerank.py and ops/experimental_ivf.py call where
-// ivf_cluster.takes_cluster_form says so.
+//     csrc/ivf_rerank_wave.cu does, on int8 + scales and bf16 slabs with the
+//     query rounded to bf16 (round_q), and on f32 slabs with the f32 query;
+//   zebra_tpu/ops/experimental_ivf.py:178 (_kernel_factory_v3), as
+//     csrc/ivf_rerank_aug.cu does, on augmented bf16 and f32 slabs (aug: one
+//     raw dot per row, min(d, BIG), positions on the flat probe axis).
+// Reached through zebra_tpu_torch/ops/ivf_cluster.py::cluster_rerank and
+// ::aug_rerank, which the wrappers ops/ivf_rerank.py and
+// ops/experimental_ivf.py call where ivf_cluster.takes_cluster_form says so.
 //
 // Bound: device-memory reads. On the refine=4 path at 1M x 768 int8
 // (B=16384, P=4) the 65,536 pairs probe ~15.7k distinct blocks, each read
@@ -36,7 +39,8 @@
 //     d3/2^21) with u = 2^(e-6) from the query's largest |q| (exact to f32's
 //     24 bits at its largest entries; the error is under u*2^-22); on bf16
 //     slabs bf16 parts, hi + mid + lo == q exactly, or the one bf16-rounded
-//     part (round_q). Also |q|^2 (of the rounded query with round_q);
+//     part (round_q); on f32 slabs two TF32 parts, hi = tf32(q) and lo = q -
+//     hi. Also |q|^2 (of the rounded query with round_q);
 //   * score kernel, one block of 4 warps per item: the item's staged queries
 //     are copied to shared memory (only those the item has); warp w takes
 //     the 16-row tiles w, w+4, ... of the block's live prefix (counts[c];
@@ -52,29 +56,46 @@
 //     row (the residual against the first three digits); the digits' sums
 //     are combined in f32 at the end. bf16 rows: m16n8k16 products against
 //     each part into fresh f32 accumulators per chunk (short independent
-//     chains), added on the CUDA cores. mma.sync rather than wgmma: a tile is
-//     16 live rows x the item's 8 queries (the path's blocks are probed by
-//     ~2-4 queries of a batch of 16384), the A operand comes straight from
-//     the ring, and the product is not what bounds the kernel;
+//     chains), added on the CUDA cores. f32 rows: 3xTF32 on m16n8k8, each
+//     element split hi + lo on the CUDA cores as it leaves the ring, hi*hi
+//     into one fresh accumulator per k-step parity and hi*lo + lo*hi into
+//     another, per 64-column chunk (the tensor core truncates as it
+//     accumulates; lsh_rerank_slab.cu:93-134), added on the CUDA cores:
+//     about f32's accuracy at 3 products, where three bf16 parts of the row
+//     would take 6-9 products and 3 roundings an element. mma.sync rather
+//     than wgmma: a tile is 16 live rows x the item's 8 queries (the path's
+//     blocks are probed by ~2-4 queries of a batch of 16384), the A operand
+//     comes straight from the ring, and the product is not what bounds the
+//     kernel;
 //   * epilogue: dequantise after the dot (scale, plus rscale times the
 //     residual dot), the distance from the stored norm and |q|^2, +inf for
 //     rows past counts[c] or tombstoned, written at the pair's own place of
 //     dist [B, P*C] (query b, probe position p, row r: b*P*C + p*C + r). Every
-//     entry of dist is written once;
+//     entry of dist is written once. The aug epilogue (kernel 3): every one
+//     of the C rows is read whatever counts[c] says (a dead or empty row
+//     carries PEN = 3.2e38 in lane D and the query 1 there), the distance is
+//     the raw dot, and min(d, BIG) is written (fminf: an overflow to +inf, or
+//     a NaN, comes out BIG too);
 //   * select kernel, one warp per query over its P*C entries held in
 //     registers: a radix select on the order-preserving bits of the distance
 //     finds the kk-th smallest (kk = min(k, live entries)), the entries below
 //     it and the lowest-positioned ties at it are collected, and each one's
-//     rank is counted against the others by (distance, position).
+//     rank is counted against the others by (distance, position). Entries
+//     >= BIG are missing; the aug form returns positions on the flat [P*C]
+//     axis instead of slab slots.
 //
 // Contract: that of csrc/ivf_rerank.cu / csrc/ivf_rerank_wave.cu
 // (ivf_rerank.cu:22-31, ivf_rerank_wave.cu:27-37): dequantise after the dot;
 // cosine 1 - dot * rsqrt(max(|q|^2 n2, 1e-30)) and 1 where |q|^2 n2 == 0; l2
 // sqrt(max(|q|^2 + n2 - 2 dot, 0)), sql2 without the sqrt; invalid rows never
 // selected, (+inf, -1) past a query's live rows; ties to the lowest position
-// of the flattened [P*C] probe axis; k <= 128, any P >= 1. Taken for D a
-// multiple of 16, C a multiple of 16 and P*C <= 2048 (the wrapper's rule).
-// Row offsets are 64-bit.
+// of the flattened [P*C] probe axis; k <= 128, any P >= 1. The aug form has
+// that of csrc/ivf_rerank_aug.cu (experimental_ivf.py:178-360): d = min(<w,
+// row>, BIG) over all C rows of each probed block, f32 w (three bf16 parts on
+// a bf16 slab, two TF32 parts on an f32 one) or w rounded to bf16 (round_q),
+// values >= BIG never selected, positions on the flat [P*C] axis. Taken for D
+// (the stored row width) a multiple of 16, C a multiple of 16 and P*C <= 2048
+// (the wrapper's rule). Row offsets are 64-bit.
 
 #include <type_traits>
 
@@ -87,7 +108,7 @@ using namespace zt;
 constexpr int kCWarps = 4;             // warps per scoring block
 constexpr int kItem = 8;               // queries per work item: one n=8 tile
 constexpr int kCThreads = kCWarps * 32;
-constexpr int kChunk = 64;             // columns per chunk: 2 int8 or 4 bf16 k-steps
+constexpr int kChunk = 64;             // columns per chunk: 2 int8, 4 bf16 or 8 tf32 k-steps
 constexpr int kSelWarps = 8;           // queries per selection block
 constexpr int kMaxEntries = 2048;      // P*C a selection warp holds
 
@@ -115,6 +136,27 @@ __device__ __forceinline__ void mma_s8(int (&d)[4], uint32_t a0, uint32_t a1, ui
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
+// d = a * b + d, one m16n8k8 TF32 product with f32 accumulation. a: rows g
+// and g+8 at k c and c+4 (a0: g,c; a1: g+8,c; a2: g,c+4; a3: g+8,c+4); b:
+// query g at k c and c+4; d as in mma_bf16. The tensor core reads the
+// leading 10 mantissa bits of each operand.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// hi = x rounded to TF32 (10 mantissa bits, half away from zero); lo = x -
+// hi, exact in f32, of which the tensor core reads the leading 10 bits. A
+// finite x stays finite: PEN = 3.2e38 rounds to below 2^128.
+__device__ __forceinline__ void split_tf32(uint32_t x, uint32_t& hi, uint32_t& lo) {
+  hi = (x + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(__uint_as_float(x) - __uint_as_float(hi));
+}
+
 __device__ __forceinline__ float metric_distance(int metric, float dot, float qn2, float n2) {
   if (metric == 0) {
     const float d = 1.f - dot * rsqrtf(fmaxf(qn2 * n2, 1e-30f));
@@ -131,17 +173,24 @@ __device__ __forceinline__ float metric_distance(int metric, float dot, float qn
 constexpr int kDigits = 4;
 constexpr int kResDigits = 3;
 
+template <class E>
+constexpr bool kIsI8 = std::is_same_v<E, ElemI8>;
+template <class E>
+constexpr bool kIsF32 = std::is_same_v<E, ElemF32>;
+
 // Query rows staged per query, and the bytes between two: an int8 digit row
-// holds Dpad bytes, a bf16 part row 2*Dpad (Dpad a multiple of 64), padded so
-// that the 16-byte B loads of a quarter warp (lanes g = 0, 1 at c = 0..3)
-// hit distinct banks: the stride between queries is 64 mod 128 bytes (int8:
-// lane c reads bytes 16c..16c+15 of a 64-byte chunk; bf16: 16c and 64+16c of
-// a 128-byte chunk).
-template <bool kI8, bool kRound>
-constexpr int kQRows = kI8 ? kDigits : (kRound ? 1 : 3);
-template <bool kI8, bool kRound>
+// holds Dpad bytes, a bf16 part row 2*Dpad, an f32 (TF32 part) row 4*Dpad
+// (Dpad a multiple of 64), padded so that the 16-byte B loads of a quarter
+// warp (lanes g = 0, 1 at c = 0..3) hit distinct banks: the stride between
+// queries is 64 mod 128 bytes (int8: lane c reads bytes 16c..16c+15 of a
+// 64-byte chunk; bf16: 16c and 64+16c of a 128-byte chunk; f32: 64j+16c of
+// a 256-byte chunk, j = 0..3).
+template <class E, bool kRound>
+constexpr int kQRows = kIsI8<E> ? kDigits : kIsF32<E> ? 2 : (kRound ? 1 : 3);
+template <class E>
 __host__ __device__ constexpr int query_row_bytes(int dpad) {
-  return kI8 ? dpad + 16 : 2 * dpad + 64;  // 4 * (Dpad + 16) = 64 mod 128
+  // 4 * (Dpad + 16), 3 * (2 Dpad + 64) or 2 * (4 Dpad + 32) = 64 mod 128
+  return kIsI8<E> ? dpad + 16 : kIsF32<E> ? 4 * dpad + 32 : 2 * dpad + 64;
 }
 
 // 16 bytes global -> shared, or 16 zero bytes when bytes == 0
@@ -161,20 +210,25 @@ __device__ __forceinline__ void cp_async_wait() {
 
 // A lane's slab bytes for one 64-column chunk, as 16-byte pieces: int8 rows
 // g and g+8 at columns 16c..16c+15 (then the residual's two, when scanned);
-// bf16 rows g and g+8 at columns 8c..8c+7, then both at 32+8c..32+8c+7.
-template <bool kI8, bool kRes>
-constexpr int kPieces = (kI8 && !kRes) ? 2 : 4;
+// bf16 rows g and g+8 at columns 8c..8c+7, then both at 32+8c..32+8c+7; f32
+// rows g and g+8 at columns 16j+4c..16j+4c+3 for j = 0..3.
+template <class E, bool kRes>
+constexpr int kPieces = kIsF32<E> ? 8 : (kIsI8<E> && !kRes) ? 2 : 4;
+constexpr int kMaxPieces = 8;
+// the pieces a lane holds for one chunk (int8 without the residual pads its
+// two with zeros to four)
+template <class E, bool kRes>
+constexpr int kHeld = kPieces<E, kRes> > 4 ? kPieces<E, kRes> : 4;
 // chunks a step copies: a step reads 256 contiguous bytes of each row (its
 // lanes' 64-byte pieces of neighbouring chunks leave together)
-template <bool kI8, bool kRes>
-constexpr int kSub = kPieces<kI8, kRes> == 2 ? 4 : 2;
+template <class E, bool kRes>
+constexpr int kSub = kMaxPieces / kPieces<E, kRes>;
 // steps a warp keeps in flight, 12 KB of slab: a whole tile of 768 int8
-// columns, or half of it with the residual or in bf16
-template <bool kI8, bool kRes>
+// columns, half of it with the residual or in bf16, a quarter in f32
 constexpr int kDepth = 3;
 // bytes of one warp's ring: [depth][sub-chunk][piece][lane][16 B]
-template <bool kI8, bool kRes>
-constexpr int kRingBytes = kDepth<kI8, kRes> * kSub<kI8, kRes> * kPieces<kI8, kRes> * 32 * 16;
+template <class E, bool kRes>
+constexpr int kRingBytes = kDepth * kSub<E, kRes> * kPieces<E, kRes> * 32 * 16;
 
 // The running dots of a warp's tile against the item's (up to) 8 queries:
 // int32 per digit (int8 slabs: exact), or f32 (bf16 slabs).
@@ -201,16 +255,18 @@ struct Acc {
 // m16n8k32 int8 products against each digit; bf16 rows in m16n8k16 products
 // against each bf16 part, through fresh f32 accumulators (one per part and
 // k-step parity: short independent chains) that the CUDA cores add to the
-// running dot. The K order inside a chunk is permuted so that a lane's 16
-// contiguous bytes ARE its A fragments; the query rows are read in the same
-// order.
-template <bool kI8, bool kRound, bool kRes>
-__device__ __forceinline__ void multiply_chunk(const uint4 (&w)[4], const char* qchunk, int rb,
-                                               Acc<kI8, kRes>& acc) {
-  constexpr int kRows = kQRows<kI8, kRound>;
+// running dot; f32 rows split into TF32 hi + lo, in m16n8k8 products hi*hi
+// and hi*lo + lo*hi, through fresh accumulators per k-step parity. The K
+// order inside a chunk is permuted so that a lane's 16 contiguous bytes ARE
+// its A fragments; the query rows are read in the same order.
+template <class E, bool kRound, bool kRes>
+__device__ __forceinline__ void multiply_chunk(const uint4 (&w)[kHeld<E, kRes>],
+                                               const char* qchunk, int rb,
+                                               Acc<kIsI8<E>, kRes>& acc) {
+  constexpr int kRows = kQRows<E, kRound>;
   const uint32_t* w0 = reinterpret_cast<const uint32_t*>(&w[0]);
   const uint32_t* w1 = reinterpret_cast<const uint32_t*>(&w[1]);
-  if constexpr (kI8) {
+  if constexpr (kIsI8<E>) {
     const uint32_t* r0 = reinterpret_cast<const uint32_t*>(&w[2]);
     const uint32_t* r1 = reinterpret_cast<const uint32_t*>(&w[3]);
 #pragma unroll
@@ -228,6 +284,38 @@ __device__ __forceinline__ void multiply_chunk(const uint4 (&w)[4], const char* 
         }
       }
     }
+  } else if constexpr (kIsF32<E>) {
+    // group j: columns 16j..16j+15 in two k-steps t; a lane's 4 values of
+    // row g (piece 2j) at 16j+4c..16j+4c+3 are a0, a2 of step 0 then of
+    // step 1, row g+8's (piece 2j+1) a1, a3; the staged query the same way
+    float big[2][4], small[2][4];
+#pragma unroll
+    for (int t = 0; t < 2; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) big[t][e] = small[t][e] = 0.f;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const uint32_t* rg = reinterpret_cast<const uint32_t*>(&w[2 * j]);
+      const uint32_t* r8 = reinterpret_cast<const uint32_t*>(&w[2 * j + 1]);
+      const uint4 uh = *reinterpret_cast<const uint4*>(qchunk + 64 * j);
+      const uint4 ul = *reinterpret_cast<const uint4*>(qchunk + rb + 64 * j);
+      const uint32_t bh[4] = {uh.x, uh.y, uh.z, uh.w};
+      const uint32_t bl[4] = {ul.x, ul.y, ul.z, ul.w};
+#pragma unroll
+      for (int t = 0; t < 2; ++t) {
+        uint32_t ah[4], al[4];
+        split_tf32(rg[2 * t], ah[0], al[0]);
+        split_tf32(r8[2 * t], ah[1], al[1]);
+        split_tf32(rg[2 * t + 1], ah[2], al[2]);
+        split_tf32(r8[2 * t + 1], ah[3], al[3]);
+        mma_tf32(big[t], ah, bh[2 * t], bh[2 * t + 1]);
+        mma_tf32(small[t], ah, bl[2 * t], bl[2 * t + 1]);
+        mma_tf32(small[t], al, bh[2 * t], bh[2 * t + 1]);
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      acc.f[e] += (small[0][e] + small[1][e]) + (big[0][e] + big[1][e]);
   } else {
     const uint32_t* w2 = reinterpret_cast<const uint32_t*>(&w[2]);
     const uint32_t* w3 = reinterpret_cast<const uint32_t*>(&w[3]);
@@ -307,17 +395,18 @@ __global__ void __launch_bounds__(256) cluster_items_kernel(
 // written once per query in the layout of its shared-memory rows (kQRows
 // rows of query_row_bytes each; pads unwritten), with |q|^2 and, for int8
 // slabs, the digits' unit 2^(e-6). int8 slabs: kDigits int8 digits;
-// bf16 slabs: the bf16 parts.
-template <bool kI8, bool kRound>
+// bf16 slabs: the bf16 parts; f32 slabs: the TF32 hi and the f32 lo.
+template <class E, bool kRound>
 __global__ void __launch_bounds__(kSelWarps * 32) stage_queries_kernel(
     const float* __restrict__ q, int B, int D, char* __restrict__ staged,
     float* __restrict__ qn2, float* __restrict__ qunit) {
-  constexpr int kRows = kQRows<kI8, kRound>;
+  constexpr bool kI8 = kIsI8<E>;
+  constexpr int kRows = kQRows<E, kRound>;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int b = blockIdx.x * kSelWarps + warp;
   if (b >= B) return;
   const int dpad = (D + kChunk - 1) / kChunk * kChunk;
-  const int rb = query_row_bytes<kI8, kRound>(dpad);
+  const int rb = query_row_bytes<E>(dpad);
   const float* qb = q + static_cast<int64_t>(b) * D;
   char* row = staged + static_cast<int64_t>(b) * kRows * rb;
   auto value = [&](int d) {  // the query's value at d as the kernel multiplies it
@@ -360,6 +449,12 @@ __global__ void __launch_bounds__(kSelWarps * 32) stage_queries_kernel(
       }
 #pragma unroll
       for (int k = 0; k < kDigits; ++k) *reinterpret_cast<uint32_t*>(row + k * rb + d) = dig[k];
+    } else if constexpr (kIsF32<E>) {
+      uint32_t h[4], l[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) split_tf32(__float_as_uint(x[i]), h[i], l[i]);
+      *reinterpret_cast<uint4*>(row + 4 * d) = make_uint4(h[0], h[1], h[2], h[3]);
+      *reinterpret_cast<uint4*>(row + rb + 4 * d) = make_uint4(l[0], l[1], l[2], l[3]);
     } else {
       uint32_t h[4], m[4], l[4];
 #pragma unroll
@@ -384,11 +479,13 @@ __global__ void __launch_bounds__(kSelWarps * 32) stage_queries_kernel(
   }
 }
 
-// E: ElemI8 (codes with scales, optionally the residual) or ElemBF16.
-// kRound: the query rounded to bf16 first (the wave re-rank's round_q);
-// else the f32 query (bf16 slabs: as hi + mid + lo bf16 parts, whose sum is
-// the f32 value exactly).
-template <class E, bool kRound, bool kRes>
+// E: ElemI8 (codes with scales, optionally the residual), ElemBF16 or
+// ElemF32. kRound: the query rounded to bf16 first (the wave re-rank's
+// round_q, the aug re-rank's one-pass form); else the f32 query (bf16 slabs:
+// as hi + mid + lo bf16 parts, whose sum is the f32 value exactly; f32 slabs:
+// TF32 hi + lo). kAug: the augmented slab's epilogue (counts, norms, valid,
+// scales and metric unread).
+template <class E, bool kRound, bool kRes, bool kAug>
 __global__ void __launch_bounds__(kCThreads) cluster_score_kernel(
     const char* __restrict__ staged, const float* __restrict__ qn2,
     const float* __restrict__ qunit, const int64_t* __restrict__ order,
@@ -399,19 +496,19 @@ __global__ void __launch_bounds__(kCThreads) cluster_score_kernel(
     const float* __restrict__ rscales, const float* __restrict__ norms,
     const uint8_t* __restrict__ valid, float* __restrict__ dist, int P, int C, int D,
     int metric) {
-  constexpr bool kI8 = std::is_same_v<E, ElemI8>;
-  constexpr int kRows = kQRows<kI8, kRound>;
-  constexpr int kP = kPieces<kI8, kRes>;
-  constexpr int kS = kSub<kI8, kRes>;
-  constexpr int kD = kDepth<kI8, kRes>;
+  constexpr bool kI8 = kIsI8<E>;
+  constexpr int kRows = kQRows<E, kRound>;
+  constexpr int kP = kPieces<E, kRes>;
+  constexpr int kS = kSub<E, kRes>;
+  constexpr int kD = kDepth;
   constexpr size_t kEl = sizeof(typename E::T);
   extern __shared__ float4 smem4[];
   const int dpad = (D + kChunk - 1) / kChunk * kChunk;
-  const int rb = query_row_bytes<kI8, kRound>(dpad);
+  const int rb = query_row_bytes<E>(dpad);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   // [kCWarps] rings of slab pieces, then [kItem * kRows] staged query rows
   uint4* ring = reinterpret_cast<uint4*>(smem4) + warp * (kD * kS * kP * 32);
-  char* qs = reinterpret_cast<char*>(smem4) + kCWarps * kRingBytes<kI8, kRes>;
+  char* qs = reinterpret_cast<char*>(smem4) + kCWarps * kRingBytes<E, kRes>;
   __shared__ float qn2s[kItem];
   __shared__ float qsc[kItem];  // int8 slabs: 2^(e-6), the digits' unit
   __shared__ int64_t dsts[kItem];
@@ -421,7 +518,7 @@ __global__ void __launch_bounds__(kCThreads) cluster_score_kernel(
   const int c = sorted_c[s0];
   int nq = 1;
   while (nq < kItem && s0 + nq < n_pairs && sorted_c[s0 + nq] == c) ++nq;
-  const int cnt = min(max(counts[c], 0), C);
+  const int cnt = kAug ? C : min(max(counts[c], 0), C);
   const int ntile = (cnt + 15) >> 4;
   const int nchunk = dpad / kChunk;
   const int nstep = (nchunk + kS - 1) / kS;  // steps a tile takes
@@ -456,6 +553,15 @@ __global__ void __launch_bounds__(kCThreads) cluster_score_kernel(
           if constexpr (kRes) {
             cp_async16(slot + 64, i_res + ec, on);
             cp_async16(slot + 96, i_res + 8 * D + ec, on);
+          }
+        } else if constexpr (kIsF32<E>) {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int e = kc * kChunk + 16 * j + 4 * c4;
+            const int on = e < D ? 16 : 0;
+            const int ec = on ? 4 * e : 0;
+            cp_async16(slot + 64 * j, i_row + ec, on);
+            cp_async16(slot + 64 * j + 32, i_row + 32 * D + ec, on);
           }
         } else {
 #pragma unroll
@@ -503,7 +609,7 @@ __global__ void __launch_bounds__(kCThreads) cluster_score_kernel(
 
   // consume side: the step's slot, chunk and tile
   const char* qlane = qs + static_cast<size_t>(g * kRows) * rb + 16 * c4;
-  const int chunk_bytes = kI8 ? kChunk : 2 * kChunk;
+  constexpr int chunk_bytes = kChunk * sizeof(typename E::T);
   Acc<kI8, kRes> acc;
   acc.zero();
   int c_slot = 0, c_ks = 0, c_t = warp;
@@ -515,10 +621,11 @@ __global__ void __launch_bounds__(kCThreads) cluster_score_kernel(
       const int kc = c_ks * kS + u;
       if (kc >= nchunk) break;
       const uint4* slot = ring + ((c_slot * kS + u) * kP) * 32 + lane;
-      uint4 w[4];
+      uint4 w[kHeld<E, kRes>];
 #pragma unroll
-      for (int p = 0; p < 4; ++p) w[p] = p < kP ? slot[32 * p] : make_uint4(0u, 0u, 0u, 0u);
-      multiply_chunk<kI8, kRound, kRes>(w, qlane + chunk_bytes * kc, rb, acc);
+      for (int p = 0; p < kHeld<E, kRes>; ++p)
+        w[p] = p < kP ? slot[32 * p] : make_uint4(0u, 0u, 0u, 0u);
+      multiply_chunk<E, kRound, kRes>(w, qlane + chunk_bytes * kc, rb, acc);
     }
     c_slot = c_slot + 1 == kD ? 0 : c_slot + 1;
     if (++c_ks != nstep) continue;
@@ -526,6 +633,18 @@ __global__ void __launch_bounds__(kCThreads) cluster_score_kernel(
     const int t = c_t;
     c_ks = 0;
     c_t += kCWarps;
+    if constexpr (kAug) {
+      // the raw dot, clamped: a dead row's PEN lane keeps it at BIG
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int j = 2 * c4 + e;
+          if (j < nq) dist[dsts[j] + t * 16 + g + 8 * h] = fminf(acc.f[2 * h + e], kBig);
+        }
+      acc.zero();
+      continue;
+    }
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int r = t * 16 + g + 8 * h;
@@ -642,7 +761,11 @@ __global__ void __launch_bounds__(kSelWarps * 32) cluster_select_kernel(
       }
       const int64_t o = static_cast<int64_t>(b) * k + rank;
       out_d[o] = row[pe];
-      out_s[o] = static_cast<int64_t>(probes[static_cast<int64_t>(b) * P + pe / C]) * C + pe % C;
+      // a slab slot; or, without probes (the aug form), the position itself
+      out_s[o] = probes == nullptr
+                     ? pe
+                     : static_cast<int64_t>(probes[static_cast<int64_t>(b) * P + pe / C]) * C +
+                           pe % C;
     }
   }
   for (int j = kk + lane; j < k; j += 32) {
@@ -675,16 +798,14 @@ struct ScoreArgs {
   cudaStream_t stream;
 };
 
-template <class E, bool kRound, bool kRes>
+template <class E, bool kRound, bool kRes, bool kAug = false>
 void launch_score(const ScoreArgs& a) {
-  constexpr bool kI8 = std::is_same_v<E, ElemI8>;
   const int dpad = (a.D + kChunk - 1) / kChunk * kChunk;
-  const size_t smem = static_cast<size_t>(kCWarps) * kRingBytes<kI8, kRes> +
-                      static_cast<size_t>(kItem * kQRows<kI8, kRound>) *
-                          query_row_bytes<kI8, kRound>(dpad);
-  stage_queries_kernel<kI8, kRound><<<(a.B + kSelWarps - 1) / kSelWarps, kSelWarps * 32, 0,
-                                       a.stream>>>(a.q, a.B, a.D, a.staged, a.qn2, a.qunit);
-  auto* fn = cluster_score_kernel<E, kRound, kRes>;
+  const size_t smem = static_cast<size_t>(kCWarps) * kRingBytes<E, kRes> +
+                      static_cast<size_t>(kItem * kQRows<E, kRound>) * query_row_bytes<E>(dpad);
+  stage_queries_kernel<E, kRound><<<(a.B + kSelWarps - 1) / kSelWarps, kSelWarps * 32, 0,
+                                     a.stream>>>(a.q, a.B, a.D, a.staged, a.qn2, a.qunit);
+  auto* fn = cluster_score_kernel<E, kRound, kRes, kAug>;
   if (smem > 48 * 1024)
     cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   fn<<<a.grid, kCThreads, smem, a.stream>>>(
@@ -728,12 +849,14 @@ extern "C" int zt_ivf_cluster_items(const void* keys, int key_bytes, int n, int 
 
 // zt_ivf_cluster_score: the work items (as zt_ivf_cluster_items; `order` the
 // sorting's int64 pair ids b*P + p, `grid` the most items there can be), the
-// staged queries, then the scoring kernel. dtype 1 bf16 slab (raw 16-bit
-// patterns), 2 int8 slab (scales required; res/rscales optional); round_q:
-// the query rounded to bf16; metric: 0 cosine, 1 l2, 2 sql2. staged (B * rows * row bytes, see
-// query_row_bytes), qn2 and qunit ([B] f32), sorted_c [n_pairs], item_start
-// [grid] and n_items [1] are the wrapper's scratch. Writes every entry of
-// dist [B, P*C].
+// staged queries, then the scoring kernel. dtype 0 f32 slab, 1 bf16 slab
+// (raw 16-bit patterns), 2 int8 slab (scales required; res/rscales
+// optional); round_q: the query rounded to bf16 (bf16 and int8 slabs);
+// metric: 0 cosine, 1 l2, 2 sql2. aug: an augmented f32 or bf16 slab of row
+// width D, `q` the transformed query w; counts, scales, norms, valid and
+// metric are not read. staged (B * rows * row bytes, see query_row_bytes),
+// qn2 and qunit ([B] f32), sorted_c [n_pairs], item_start [grid] and
+// n_items [1] are the wrapper's scratch. Writes every entry of dist [B, P*C].
 extern "C" int zt_ivf_cluster_score(const float* q, char* staged, float* qn2, float* qunit,
                                     int B, const void* keys, int key_bytes,
                                     const int64_t* order, int32_t* sorted_c,
@@ -742,10 +865,11 @@ extern "C" int zt_ivf_cluster_score(const float* q, char* staged, float* qn2, fl
                                     const void* vec, int dtype, const int8_t* res,
                                     const float* scales, const float* rscales,
                                     const float* norms, const uint8_t* valid, float* dist,
-                                    int P, int C, int D, int metric, int round_q,
+                                    int P, int C, int D, int metric, int round_q, int aug,
                                     void* stream) {
   if (grid <= 0) return 0;
-  if (D % 16 != 0 || C % 16 != 0 || (res != nullptr && (dtype != 2 || round_q)))
+  if (D % 16 != 0 || C % 16 != 0 || (res != nullptr && (dtype != 2 || round_q || aug)) ||
+      (dtype == 0 && round_q) || (aug && dtype == 2))
     return static_cast<int>(cudaErrorInvalidValue);
   const auto s = static_cast<cudaStream_t>(stream);
   const int err = launch_items(keys, key_bytes, n_pairs, kItem, sorted_c, item_start, n_items, s);
@@ -761,10 +885,19 @@ extern "C" int zt_ivf_cluster_score(const float* q, char* staged, float* qn2, fl
     else
       launch_score<ElemI8, false, false>(a);
   } else if (dtype == 1) {
-    if (round_q)
+    if (aug && round_q)
+      launch_score<ElemBF16, true, false, true>(a);
+    else if (aug)
+      launch_score<ElemBF16, false, false, true>(a);
+    else if (round_q)
       launch_score<ElemBF16, true, false>(a);
     else
       launch_score<ElemBF16, false, false>(a);
+  } else if (dtype == 0) {
+    if (aug)
+      launch_score<ElemF32, false, false, true>(a);
+    else
+      launch_score<ElemF32, false, false>(a);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -773,7 +906,8 @@ extern "C" int zt_ivf_cluster_score(const float* q, char* staged, float* qn2, fl
 
 // zt_ivf_cluster_select: each query's k smallest of dist [B, P*C] (entries
 // >= 3e38 are missing) as (distance, slot) [B, k], (+inf, -1) past its live
-// entries; P*C <= 2048.
+// entries; P*C <= 2048. probes == nullptr: positions on the flat [P*C] axis
+// instead of slots.
 extern "C" int zt_ivf_cluster_select(const float* dist, const int32_t* probes, int B, int P,
                                      int C, int k, float* out_d, int64_t* out_s, void* stream) {
   const int n = P * C;

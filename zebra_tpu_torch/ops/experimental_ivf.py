@@ -10,9 +10,10 @@ kernel or raise (no fallback on the card):
   gather-refine query (``refine=N`` with ``rerank="pallas2"``), a re-rank of
   ONE slab with a bf16-rounded query on int8 / bf16 slabs. Kernels: the
   per-query ``csrc/ivf_rerank_wave.cu``, or the cluster-major form
-  ``csrc/ivf_rerank_cluster.cu`` (int8 and bf16 slabs; ``ops/ivf_cluster.py``)
-  where ``ivf_cluster.takes_cluster_form`` takes the shape; counted in
-  :data:`LAUNCHES_WAVE` and by form in :data:`LAUNCHES_WAVE_BY_FORM`.
+  ``csrc/ivf_rerank_cluster.cu`` (int8, bf16 and f32 slabs;
+  ``ops/ivf_cluster.py``) where ``ivf_cluster.takes_cluster_form`` takes the
+  shape; counted in :data:`LAUNCHES_WAVE` and by form in
+  :data:`LAUNCHES_WAVE_BY_FORM`.
 * :func:`augment_slab`, :func:`aug_query`, :func:`aug_post`,
   :func:`rerank_aug_raw` and the adapter :func:`ivf_rerank_aug` — the twins
   of the functions of those names in ``experimental_ivf.py``
@@ -20,8 +21,11 @@ kernel or raise (no fallback on the card):
   ``_kernel_factory_v3``): rows carry their norm and liveness in
   :data:`AUG` extra lanes, so a re-rank is one dot per row and nothing else.
   No database tier stores an augmented slab; the surface is ops-level, as in
-  the JAX package. Kernel: ``csrc/ivf_rerank_aug.cu``, counted in
-  :data:`LAUNCHES_AUG`.
+  the JAX package. Kernels: the per-query ``csrc/ivf_rerank_aug.cu``, or the
+  cluster-major form ``csrc/ivf_rerank_cluster.cu`` (bf16 and f32 slabs;
+  ``ivf_cluster.aug_rerank``) where ``ivf_cluster.AugSlab.takes_cluster_form``
+  takes the shape; counted in :data:`LAUNCHES_AUG` and by form in
+  :data:`LAUNCHES_AUG_BY_FORM`.
 """
 
 from __future__ import annotations
@@ -39,8 +43,10 @@ from zebra_tpu_torch.ops.ivf_rerank import (_DTYPE_CODE, _METRIC_CODE, BIG, _ptr
 LAUNCHES_WAVE = 0
 #: the same launches by "<slab form>/<kernel form>" (``ivf_rerank.count_launch``)
 LAUNCHES_WAVE_BY_FORM: dict[str, int] = {}
-#: launches of ``csrc/ivf_rerank_aug.cu`` since the last reset
+#: launches of the aug re-rank (either kernel form) since the last reset
 LAUNCHES_AUG = 0
+#: the same launches by "<slab form>/<kernel form>" (``ivf_rerank.count_launch``)
+LAUNCHES_AUG_BY_FORM: dict[str, int] = {}
 #: augmentation lanes appended to the stored dim (``pallas_ivf.AUG``)
 AUG = 128
 #: dead-row penalty stored in lane D of an augmented row — chosen so that BOTH
@@ -256,10 +262,13 @@ def rerank_aug_raw_reference(vectors_aug: torch.Tensor, C: int, w: torch.Tensor,
 
 def _launch_aug(vectors_aug: torch.Tensor, C: int, w: torch.Tensor, probes: torch.Tensor,
                 k: int, exact: bool):
-    """Launch ``csrc/ivf_rerank_aug.cu`` on the current stream (raises on
-    any input the kernel does not take, and when the launch fails)."""
+    """Launch ``csrc/ivf_rerank_aug.cu``, or the cluster-major form where
+    ``ivf_cluster.AugSlab.takes_cluster_form`` takes the shape, on the
+    current stream (raises on any input the kernels do not take, and when a
+    launch fails)."""
     global LAUNCHES_AUG
     from zebra_tpu_torch.ops import _kernels
+    from zebra_tpu_torch.ops import ivf_cluster
 
     B, P = probes.shape
     Da = vectors_aug.shape[1]
@@ -276,19 +285,26 @@ def _launch_aug(vectors_aug: torch.Tensor, C: int, w: torch.Tensor, probes: torc
     out_p = torch.empty((B, k), dtype=torch.int32, device=dev)
     if B == 0:
         return out_d, out_p.long()
+    round_w = not exact and vectors_aug.dtype == torch.bfloat16
+    slab = ivf_cluster.AugSlab(vectors_aug, C)
+    if slab.takes_cluster_form(B, P, k, round_w):
+        res = ivf_cluster.aug_rerank(slab, wf, pr, k, round_w)
+        LAUNCHES_AUG += 1
+        count_launch(LAUNCHES_AUG_BY_FORM, vectors_aug.dtype, False, cluster=True)
+        return res
     fn = _kernels.load("ivf_rerank_aug").zt_ivf_rerank_aug
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] + [ctypes.c_void_p] * 2
                    + [ctypes.c_int] * 6 + [ctypes.c_void_p])
-    round_w = int(not exact and vectors_aug.dtype == torch.bfloat16)
     err = fn(
         _ptr(wf), _ptr(pr), _ptr(vectors_aug), _DTYPE_CODE[vectors_aug.dtype], _ptr(out_d),
-        _ptr(out_p), B, P, C, Da, k, round_w,
+        _ptr(out_p), B, P, C, Da, k, int(round_w),
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
     )
     if err != 0:
         raise RuntimeError(f"ivf_rerank_aug kernel launch failed: cudaError {err}")
     LAUNCHES_AUG += 1
+    count_launch(LAUNCHES_AUG_BY_FORM, vectors_aug.dtype, False, cluster=False)
     return out_d, out_p.long()
 
 
@@ -303,7 +319,8 @@ def rerank_aug_raw(vectors_aug: torch.Tensor, C: int, w: torch.Tensor, probes: t
     rounded to the slab's type first. Returns ``(d_raw [B, k], pos [B, k])``,
     ``pos`` on the flat ``[P*C]`` probe axis, (+inf, -1) where fewer than k
     live rows exist. CPU tensors take :func:`rerank_aug_raw_reference`; CUDA
-    tensors launch the kernel or raise.
+    tensors launch a kernel or raise (the per-query kernel or the
+    cluster-major form, by ``ivf_cluster.AugSlab.takes_cluster_form``).
     """
     _check_aug_dtype(vectors_aug.dtype)
     if probes.shape[1] % 2:

@@ -12,8 +12,8 @@ Three things live here:
 * the CUDA launch, in one of two forms chosen by
   ``ivf_cluster.takes_cluster_form``: the per-query kernel
   ``csrc/ivf_rerank.cu`` (every slab form), or the cluster-major form
-  ``csrc/ivf_rerank_cluster.cu`` (int8 with or without the residual, bf16;
-  ``ops/ivf_cluster.py``), counted in :data:`LAUNCHES` and, by slab and
+  ``csrc/ivf_rerank_cluster.cu`` (int8 with or without the residual, bf16,
+  f32; ``ops/ivf_cluster.py``), counted in :data:`LAUNCHES` and, by slab and
   kernel form, in :data:`LAUNCHES_BY_FORM`.
 
 Routing: a CPU query runs the plain version (``dots="highest"``, the grade
