@@ -24,10 +24,19 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    cluster, k=10/40/128), each timed at B=16384, P=4 beside its bound, both
    forms in turns;
 4. the IVF path at the library defaults: ``Database.create`` with
-   ``DatabaseConfig(dim=768)``, ``insert_vectors`` of 1M rows, ``query`` in
-   batches of 1024, recall@10 against the exact scan, self-retrieval,
-   ``remove``, ``save`` and reopen — and the kernel's launch count by form
-   over it; then, on the path's own probes at B=1024 and 16384, both kernel
+   ``DatabaseConfig(dim=768)``, ``insert_vectors`` of 1M rows (its stage
+   table from ``db.stats`` and the stage timers, and which host quantiser
+   ran: the native one must), ``query`` in batches of 1024 and
+   ``query_stream`` over the same batches (equal batch for batch), recall@10
+   against the exact scan, self-retrieval, ``remove``, a submit / mutate /
+   collect check (collect equals the answer before the mutations) and
+   ``deduplicate`` of 1000 planted copies (exactly those removed), ``save``
+   and reopen, ``search_arrays``, ``search_stream``, ``db.query`` and
+   ``query_stream`` at batch 16384 (the streams equal ``db.query``), one
+   submit's timeline (no host sync under PyTorch's sync debug mode; the card
+   still busy when it returns) and the host side of a batch (pinned and
+   pageable uploads, the buffer fill, formatting) — and the kernel's launch
+   count by form over it; then, on the path's own probes at B=1024 and 16384, both kernel
    forms against the plain version and in turns, probe selection's stage 1
    on the tensor cores against its plain version (times in turns, probe
    agreement with it and with the exact f32 probes), and the stages of one
@@ -45,7 +54,9 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    index=IndexOptions(index_type="lsh"))``, ``insert_vectors`` of the same 1M
    rows, ``query`` in batches of 1024, recall@10 against the exact scan,
    self-retrieval, ``remove``, ``save`` and reopen, ``search_arrays`` at
-   batch 16384, the kernel's launch count over it, all of the slab-major
+   batch 16384, with the pipelined checks of phase 4 (``query_stream`` at
+   1024 and at 16384 in two batches; no ``search_stream``), the kernel's
+   launch count over it, all of the slab-major
    form; then, on the path's own candidates of 1024 held-out queries (deep
    buckets are compacted losslessly, see ``index/lsh.py``), both forms of
    the kernel against the plain version at k=10 and k=128, the forms timed
@@ -95,8 +106,9 @@ have no fallback: a kernel that fails to build or launch raises.
 A kernel's ``bound_ms`` is the larger of its distinct bytes (every input
 byte once, every output byte once) over 3.35 TB/s and its operations over
 the card's peak rate for their type, both counted from the timed inputs.
-The second-to-last line is the kernels' JSON record (every kernel carries
-its ``forms``), the last line
+A line ``pipeline: {...}`` holds each path's insert stage table, stream
+QPS, submit timeline and dedup time. The second-to-last line is the
+kernels' JSON record (every kernel carries its ``forms``), the last line
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
 
@@ -137,6 +149,13 @@ DENSE_SHARE = 0.2
 #: LSH guards, not targets: a broken bucket scatter measured 0.48 on the TPU
 MIN_LSH_RECALL = 0.85
 MIN_LSH_SELF = 0.99
+#: base rows the submit / mutate / collect check queries and removes, and
+#: the base rows it inserts again as exact copies for deduplicate to find
+MUTATE_QUERY_ROWS = slice(5000, 6024)
+MUTATE_REMOVE_ROWS = slice(5000, 5010)
+DUP_ROWS = slice(200_000, 201_000)
+#: times the stream phases send the held-out batch of 16384
+STREAM_REPEATS = 4
 
 
 def check(cond: bool, msg: str) -> None:
@@ -273,6 +292,18 @@ def probe_bound(torch, st, probes, B, k, peak: float, residual: bool = False):
     pairs = float(live[probes].sum())
     return (bound_ms(n_bytes, pairs * 2 * D * (2 if residual else 1), peak),
             int(blocks.numel()), pairs * row)
+
+
+def time_ms_host(fn, reps: int, torch=None) -> float:
+    """Mean host-clock ms of ``fn`` over ``reps`` runs after one warm-up
+    (with ``torch``: synchronised after each run)."""
+    fn()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+        if torch is not None:
+            torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
 
 
 def time_ms(torch, fn, reps: int) -> float:
@@ -613,6 +644,128 @@ def wave_kernel_parity(torch, V, TX, IC, device, B=1024, B_time=N_QUERIES):
     return recs
 
 
+def insert_stages(db, tag, quant_before):
+    """The insert's stage table (the facade's timers in ``db.stats``, the
+    index's in the global collector, reset before the insert) and which host
+    quantiser ran. The card's machine has ``g++``: the native quantiser must
+    load, and the q8 tier must have quantised every span with it."""
+    from zebra_tpu_torch import profiling as P
+    from zebra_tpu_torch.index import ivf as V
+    from zebra_tpu_torch.native import quant as NQ
+
+    rows = [f"{name} {st['calls']}x {st['seconds']:.3f} s"
+            for src in (db.stats, P.GLOBAL_STATS) for name, st in src.summary().items()
+            if name.startswith(("insert", "ivf.", "rebuild."))]
+    print(f"{tag}insert stages (host clock): {', '.join(rows)}")
+    ran = {k: V.QUANT_CALLS[k] - quant_before[k] for k in V.QUANT_CALLS}
+    check(NQ.available(), "the native quantiser did not build or load")
+    print(f"{tag}host quantiser: native kernel built with g++ {' '.join(NQ.BUILT_WITH)}; "
+          f"calls this insert: native {ran['native']}, numpy {ran['numpy']}")
+    if db.index._wal_codec == "q8":
+        check(ran["native"] > 0 and ran["numpy"] == 0,
+              "the q8 tier must quantise every span with the native kernel")
+
+
+def stream_vs_query(torch, db, batches, want, tag, label):
+    """``db.query_stream`` over ``batches`` held batch for batch to
+    ``db.query``'s answers ``want`` (one list per batch; equal, ids and
+    distances); returns its QPS (host clock, results formatted)."""
+    t0 = time.perf_counter()
+    got = list(db.query_stream(batches, 10))
+    qps = sum(len(b) for b in batches) / (time.perf_counter() - t0)
+    same = sum(g == w for g, w in zip(got, want))
+    print(f"{tag}query_stream {label}: {qps:.0f} QPS; {same} of {len(batches)} batches equal "
+          f"db.query's")
+    check(len(got) == len(want) and same == len(want),
+          f"query_stream differs from db.query ({label})")
+    return qps
+
+
+def submit_timeline(torch, idx, big, tag):
+    """One submit of the held-out batch: PyTorch's sync debug mode raises on
+    any host sync inside it (IVF: none), the host clock at its return beside
+    the device's time for the work it queued (CUDA events), whether the card
+    was still busy when it returned, and the collect's wait. Then the host
+    side of a batch alone: the pinned upload of its f32 rows by CUDA events
+    beside a pageable one, filling the pinned buffer, and formatting the
+    results."""
+    import numpy as np
+
+    ivf = hasattr(idx, "_spare_used")
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    if ivf:
+        torch.cuda.set_sync_debug_mode("error")
+    try:
+        tok = idx.search_submit(big, 10)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    end.record()
+    submit_ms = (time.perf_counter() - t0) * 1e3
+    busy = not end.query()
+    res = idx.search_collect(tok)
+    collect_ms = (time.perf_counter() - t0) * 1e3
+    device_ms = start.elapsed_time(end)
+    print(f"{tag}submit timeline, B={len(big)}: submit returned after {submit_ms:.3f} ms "
+          f"(host clock{', no host sync under sync debug mode' if ivf else ''}) with the card "
+          f"{'still busy' if busy else 'idle'}; the work it queued took {device_ms:.3f} ms on "
+          f"the card; collect returned at {collect_ms:.3f} ms")
+    if ivf:
+        check(busy, "an IVF submit of 16384 queries returned after the card finished")
+    q = np.ascontiguousarray(big, dtype=np.float32)
+    pinned = torch.empty(q.shape, dtype=torch.float32, pin_memory=True)
+    fill_ms = time_ms_host(lambda: pinned.copy_(torch.from_numpy(q)), 5)
+    dev = torch.empty(q.shape, dtype=torch.float32, device=idx.device)
+    up_ms = time_ms(torch, lambda: dev.copy_(pinned, non_blocking=True), 10)
+    page_ms = time_ms_host(lambda: torch.from_numpy(q).to(idx.device), 5, torch)
+    fmt_ms = time_ms_host(lambda: idx._format_results(*res), 3)
+    print(f"{tag}host side of a batch of {len(big)} ({q.nbytes / 1e6:.1f} MB of f32 rows): "
+          f"filling the pinned buffer {fill_ms:.3f} ms (host clock), pinned upload "
+          f"{up_ms:.3f} ms (CUDA events), pageable upload {page_ms:.3f} ms (host clock, "
+          f"synchronised), _format_results {fmt_ms:.3f} ms (host clock)")
+    return {"submit_ms": submit_ms, "device_ms": device_ms, "collect_ms": collect_ms,
+            "fill_ms": fill_ms, "upload_ms": up_ms, "pageable_ms": page_ms, "format_ms": fmt_ms}
+
+
+def mutate_and_dedup(torch, db, ids, base, tag):
+    """A submit / mutate / collect check, then deduplicate. A batch of
+    inserted rows is submitted; before it is collected, 1000 exact copies of
+    other base rows are inserted and 10 of the batch's own rows removed.
+    The collect must equal the answer taken before the submit, bitwise; the
+    removed rows must be gone from the next answer. Then ``deduplicate``
+    must remove exactly the 1000 copies (their ids are the later ones)."""
+    import numpy as np
+
+    idx = db.index
+    q = base[MUTATE_QUERY_ROWS]
+    want = idx.search_arrays(q, 10)
+    tok = idx.search_submit(q, 10)
+    dup_ids = db.insert_vectors(base[DUP_ROWS])
+    gone = ids[MUTATE_REMOVE_ROWS]
+    db.remove(gone)
+    got = idx.search_collect(tok)
+    same = (np.array_equal(got[1], want[1]) and np.array_equal(got[2], want[2])
+            and np.array_equal(got[0].view(np.uint32), want[0].view(np.uint32)))
+    after = {i for row in db.query(q[:10], 10) for i, _ in row}
+    print(f"{tag}submit / mutate / collect: {len(dup_ids)} rows inserted and {len(gone)} of "
+          f"the batch's rows removed between submit and collect; collect equals the answer "
+          f"before the submit: {same}; removed rows in the next answer: {len(after & set(gone))}")
+    check(same and not after & set(gone), "collect did not return the pre-mutation answer")
+    n = len(db)
+    t0 = time.perf_counter()
+    db.deduplicate()
+    dedup_s = time.perf_counter() - t0
+    removed = n - len(db)
+    left = sum(i in idx for i in dup_ids)
+    print(f"{tag}deduplicate: {removed} ids removed of {len(dup_ids)} planted copies ({left} "
+          f"left) in {dedup_s:.3f} s (host clock, {n} live rows)")
+    check(removed == len(dup_ids) and left == 0
+          and all(i in idx for i in ids[DUP_ROWS]), "deduplicate did not remove exactly the copies")
+    return dedup_s
+
+
 def main_path(torch, zt, V, tmp, base, queries, cfg, tag, counter):
     """Phases 4 and 8: an IVF configuration through the facade. ``counter``
     is the ``(module, attribute)`` of the launch count of the kernel the
@@ -620,8 +773,10 @@ def main_path(torch, zt, V, tmp, base, queries, cfg, tag, counter):
     count by slab form where the module keeps one (``<attribute>_BY_FORM``).
     Returns that count, the open database, the inserted ids, the base-row
     numbers of the top-10 of the first 1024 held-out queries (after the
-    remove), and the count by form ({} where there is none)."""
+    removes), the count by form ({} where there is none) and the pipelined
+    surface's record (stage table, stream QPS, submit timeline, dedup)."""
     import numpy as np
+    from zebra_tpu_torch import profiling as P
     from zebra_tpu_torch.utils import device_sync
 
     (n, dim), n_queries = base.shape, queries.shape[0]
@@ -630,6 +785,8 @@ def main_path(torch, zt, V, tmp, base, queries, cfg, tag, counter):
     by_form = getattr(counter[0], counter[1] + "_BY_FORM", {})
     by_form.clear()
     V.EAGER_LARGE_K = 0
+    P.GLOBAL_STATS.ops.clear()
+    quant_before = dict(V.QUANT_CALLS)
     t0 = time.perf_counter()
     db = zt.Database.create(path, cfg)
     ids = db.insert_vectors(base)
@@ -645,6 +802,8 @@ def main_path(torch, zt, V, tmp, base, queries, cfg, tag, counter):
           f"spare={st['spare_capacity']}, spare_used={st['spare_used']}, "
           f"max load={st['max_cluster_load']}, overflow={st['overflow']})")
     check(len(db) == n and st["overflow"] == 0, "rows lost on insert")
+    insert_stages(db, tag, quant_before)
+    rec = {"insert_s": build_s, "stages": db.stats.summary() | P.GLOBAL_STATS.summary()}
 
     before = getattr(*counter)
     t0 = time.perf_counter()
@@ -657,6 +816,11 @@ def main_path(torch, zt, V, tmp, base, queries, cfg, tag, counter):
     check(getattr(*counter) > before, "db.query did not launch the kernel")
     check(all(len(r) == 10 and all(np.isfinite(d) for _, d in r) for r in results),
           "every query must return 10 finite results")
+    rec["query_qps_1024"] = n_queries / qs
+    rec["stream_qps_1024"] = stream_vs_query(
+        torch, db, [queries[s : s + 1024] for s in range(0, n_queries, 1024)],
+        [results[s : s + 1024] for s in range(0, n_queries, 1024)], tag,
+        f"in batches of 1024 over the {n_queries} held-out queries (db.query: {n_queries / qs:.0f} QPS)")
 
     qt = torch.from_numpy(queries[:1024]).to(db.index.device)
     _, approx, _ = db.index.search_arrays(queries[:1024], 10)
@@ -693,6 +857,7 @@ def main_path(torch, zt, V, tmp, base, queries, cfg, tag, counter):
     back = {i for row in db.query(base[1000:1100], 10) for i, _ in row} & set(gone)
     print(f"{tag}remove: 100 ids removed, {len(back)} came back")
     check(not back and len(db) == n - 100, "a removed id came back")
+    rec["dedup_s"] = mutate_and_dedup(torch, db, ids, base, tag)
 
     probe_q = queries[:1024]
     want = [[i for i, _ in row] for row in db.query(probe_q, 10)]
@@ -707,7 +872,7 @@ def main_path(torch, zt, V, tmp, base, queries, cfg, tag, counter):
     got = [[i for i, _ in row] for row in db.query(probe_q, 10)]
     print(f"{tag}save {save_s:.2f} s, open {open_s:.2f} s: same top-10 ids after reopen: "
           f"{got == want}")
-    check(got == want and len(db) == n - 100, "reopened database answers differently")
+    check(got == want and len(db) == n - 110, "reopened database answers differently")
     check(db.config.index.rerank == cfg.index.rerank, "the manifest changed the stored rerank")
     row_of = {i: r for r, i in enumerate(ids)}
     approx_rows = np.array([[row_of[i] for i in row] for row in got])
@@ -719,17 +884,30 @@ def main_path(torch, zt, V, tmp, base, queries, cfg, tag, counter):
         db.index.search_arrays(big, 10)  # returns host arrays: synchronised
     dev_qps = 3 * n_queries / (time.perf_counter() - t0)
     t0 = time.perf_counter()
-    db.query(big, 10)
+    big_rows = db.query(big, 10)
     facade_qps = n_queries / (time.perf_counter() - t0)
     print(f"{tag}query: batch {n_queries}: {dev_qps:.0f} QPS (index.search_arrays, "
           f"device synchronised), {facade_qps:.0f} QPS (db.query, results formatted)")
+    stream = [big] * STREAM_REPEATS
+    t0 = time.perf_counter()
+    for got_rows in db.index.search_stream(stream, 10):
+        pass
+    search_stream_qps = STREAM_REPEATS * n_queries / (time.perf_counter() - t0)
+    check(got_rows == big_rows, "search_stream differs from db.query at batch 16384")
+    rec.update(search_arrays_qps=dev_qps, query_qps=facade_qps, search_stream_qps=search_stream_qps,
+               stream_qps=stream_vs_query(
+                   torch, db, stream, [big_rows] * STREAM_REPEATS, tag,
+                   f"at batch {n_queries}, {STREAM_REPEATS} batches (index.search_stream: "
+                   f"{search_stream_qps:.0f} QPS, results formatted; index.search_arrays "
+                   f"{dev_qps:.0f}; db.query {facade_qps:.0f})"),
+               timeline=submit_timeline(torch, db.index, big, tag))
     launches, launches_by_form = getattr(*counter), dict(by_form)
     print(f"{tag}launches: {counter[1]} {launches} over the path "
           f"{launches_by_form or ''}; eager large-k fallbacks {V.EAGER_LARGE_K}")
     check(launches > 0 and V.EAGER_LARGE_K == 0, "the path must run through its kernel")
     check(not launches_by_form or sum(launches_by_form.values()) == launches,
           "the launches by form must add up to the launches")
-    return launches, db, ids, approx_rows, launches_by_form
+    return launches, db, ids, approx_rows, launches_by_form, rec
 
 
 def probe_selection_report(torch, V, st, qt, P, metric, tag):
@@ -1056,8 +1234,11 @@ def lsh_path(torch, zt, TB, LR, tmp, base, queries):
     kernel launch count of the run and the slab-major form's share of it,
     and, on the path's own candidates of 1024 held-out queries, the kernel's
     max abs error against its plain version, both forms' times, the plain
-    version's and the bound."""
+    version's and the bound; under "pipeline", the pipelined surface's record
+    (stage table, stream QPS, submit timeline, dedup)."""
     import numpy as np
+    from zebra_tpu_torch import profiling as P
+    from zebra_tpu_torch.index import ivf as V
     from zebra_tpu_torch.utils import device_sync
 
     (n, dim), n_queries = base.shape, queries.shape[0]
@@ -1065,6 +1246,8 @@ def lsh_path(torch, zt, TB, LR, tmp, base, queries):
     cfg = zt.DatabaseConfig(dim=dim, index=zt.IndexOptions(index_type="lsh"))
     LR.LAUNCHES = LR.LAUNCHES_SLAB = 0
     TB.EAGER_LARGE_K = 0
+    P.GLOBAL_STATS.ops.clear()
+    quant_before = dict(V.QUANT_CALLS)
     t0 = time.perf_counter()
     db = zt.Database.create(path, cfg)
     ids = db.insert_vectors(base)
@@ -1083,6 +1266,8 @@ def lsh_path(torch, zt, TB, LR, tmp, base, queries):
           f"candidate width: {width} of T*P*C={full}, slab={st['slab_capacity']}, "
           f"overflow={st['overflow']})")
     check(len(db) == n and idx.options.rerank == "cuda", "LSH insert lost rows or rerank")
+    insert_stages(db, "lsh ", quant_before)
+    rec = {"insert_s": build_s, "stages": db.stats.summary() | P.GLOBAL_STATS.summary()}
     qt = torch.from_numpy(queries[:1024]).to(idx.device)
     t0 = time.perf_counter()
     cand, cand_valid = TB._candidates(idx.state, qt, probes, mc, lossless)
@@ -1104,6 +1289,11 @@ def lsh_path(torch, zt, TB, LR, tmp, base, queries):
     check(LR.LAUNCHES > 0, "db.query did not launch lsh_rerank")
     check(all(len(r) == 10 and all(np.isfinite(d) for _, d in r) for r in results),
           "every LSH query must return 10 finite results")
+    rec["query_qps_1024"] = n_queries / qs
+    rec["stream_qps_1024"] = stream_vs_query(
+        torch, db, [queries[s : s + 1024] for s in range(0, n_queries, 1024)],
+        [results[s : s + 1024] for s in range(0, n_queries, 1024)], "lsh ",
+        f"in batches of 1024 over the {n_queries} held-out queries (db.query: {n_queries / qs:.0f} QPS)")
 
     _, approx, _ = idx.search_arrays(queries[:1024], 10)
     _, exact, _ = TB.brute_force(idx.state, qt, 10, metric=idx.metric)
@@ -1129,6 +1319,7 @@ def lsh_path(torch, zt, TB, LR, tmp, base, queries):
     back = {i for row in db.query(base[1000:1100], 10) for i, _ in row} & set(gone)
     print(f"lsh remove: 100 ids removed, {len(back)} came back")
     check(not back and len(db) == n - 100, "a removed id came back")
+    rec["dedup_s"] = mutate_and_dedup(torch, db, ids, base, "lsh ")
 
     probe_q = queries[:1024]
     want = [[i for i, _ in row] for row in db.query(probe_q, 10)]
@@ -1143,7 +1334,7 @@ def lsh_path(torch, zt, TB, LR, tmp, base, queries):
     got = [[i for i, _ in row] for row in db.query(probe_q, 10)]
     print(f"lsh save {save_s:.2f} s, open {open_s:.2f} s: same top-10 ids after reopen: "
           f"{got == want}")
-    check(got == want and len(db) == n - 100, "reopened LSH database answers differently")
+    check(got == want and len(db) == n - 110, "reopened LSH database answers differently")
 
     big = queries[:n_queries]
     db.index.search_arrays(big, 10)  # warm
@@ -1151,8 +1342,15 @@ def lsh_path(torch, zt, TB, LR, tmp, base, queries):
     for _ in range(3):
         db.index.search_arrays(big, 10)  # returns host arrays: synchronised
     dev_qps = 3 * n_queries / (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    big_rows = db.query(big, 10)
+    facade_qps = n_queries / (time.perf_counter() - t0)
     print(f"lsh query: batch {n_queries}: {dev_qps:.0f} QPS (index.search_arrays, "
-          f"device synchronised)")
+          f"device synchronised), {facade_qps:.0f} QPS (db.query, results formatted)")
+    rec.update(search_arrays_qps=dev_qps, query_qps=facade_qps, stream_qps=stream_vs_query(
+        torch, db, [big] * 2, [big_rows] * 2, "lsh ",
+        f"at batch {n_queries}, 2 batches (index.search_arrays {dev_qps:.0f}; db.query "
+        f"{facade_qps:.0f})"), timeline=submit_timeline(torch, db.index, big, "lsh "))
     launches, slab_launches, large_k = LR.LAUNCHES, LR.LAUNCHES_SLAB, TB.EAGER_LARGE_K
     print(f"launches: lsh_rerank {launches} over the LSH path, {slab_launches} of them the "
           f"slab-major form; eager large-k fallbacks {large_k}")
@@ -1264,7 +1462,7 @@ def lsh_path(torch, zt, TB, LR, tmp, base, queries):
     torch.cuda.empty_cache()
     return {"launches": launches, "launches_slab": slab_launches, "max_abs_err": worst_err,
             "ms": ms, "gather_ms": gather_ms, "plain_ms": plain_ms, "bound_ms": lsh_bound[0],
-            "bound_by": lsh_bound[1]}
+            "bound_by": lsh_bound[1], "pipeline": rec}
 
 
 def aug_path(torch, V, TX, IC, device, K=16384, C=128, D=DIM, P=4, B=1024, B_time=N_QUERIES):
@@ -1572,9 +1770,10 @@ def main() -> int:
           f"{time.perf_counter() - t0:.2f} s")
 
     # phase 4: the IVF path at the library defaults
+    pipe_recs = {}
     tmp = tempfile.mkdtemp(prefix="zebra_smoke_")
     try:
-        launches, db, _, scan_rows, scan_forms = main_path(
+        launches, db, _, scan_rows, scan_forms, pipe_recs["defaults"] = main_path(
             torch, zt, V, tmp, base, queries, zt.DatabaseConfig(dim=DIM), "", (R, "LAUNCHES"))
         check({f.split("/")[0] for f in scan_forms} == {"int8+residual"},
               "the defaults must launch only the int8 + residual slab form")
@@ -1607,7 +1806,7 @@ def main() -> int:
     try:
         cfg = zt.DatabaseConfig(dim=DIM, index=zt.IndexOptions(refine=4, rerank="pallas2"))
         R.LAUNCHES = 0
-        wave_launches, db, ids, _, wave_by_form = main_path(
+        wave_launches, db, ids, _, wave_by_form, pipe_recs["refine"] = main_path(
             torch, zt, V, tmp, base, queries, cfg, "refine ", (TX, "LAUNCHES_WAVE"))
         check(db.index.options.rerank == "cuda2" and R.LAUNCHES == 0,
               "refine=4 with rerank='pallas2' must run the wave kernel, never the probe kernel")
@@ -1626,7 +1825,7 @@ def main() -> int:
     tmp = tempfile.mkdtemp(prefix="zebra_smoke_balanced_")
     try:
         cfg = zt.DatabaseConfig(dim=DIM, index=zt.IndexOptions.tier("balanced"))
-        bal_launches, db, _, _, bal_forms = main_path(
+        bal_launches, db, _, _, bal_forms, pipe_recs["balanced"] = main_path(
             torch, zt, V, tmp, base, queries, cfg, "balanced ", (R, "LAUNCHES"))
         check({f.split("/")[0] for f in bal_forms} == {"bf16"},
               "the balanced tier must launch only the bf16 slab form")
@@ -1647,7 +1846,7 @@ def main() -> int:
     tmp = tempfile.mkdtemp(prefix="zebra_smoke_f32_")
     try:
         cfg = zt.DatabaseConfig(dim=DIM, index=zt.IndexOptions(dtype="float32"))
-        f32_launches, db, _, _, f32_forms = main_path(
+        f32_launches, db, _, _, f32_forms, pipe_recs["f32"] = main_path(
             torch, zt, V, tmp, base, queries, cfg, "f32 ", (R, "LAUNCHES"))
         check({f.split("/")[0] for f in f32_forms} == {"f32"},
               "the f32 tier must launch only the f32 slab form")
@@ -1671,6 +1870,7 @@ def main() -> int:
           f"{aug_by_form} over their paths; the whole run took "
           f"{time.perf_counter() - t_start:.0f} s after the card check")
 
+    print("pipeline: " + json.dumps(pipe_recs | {"lsh": lsh_run["pipeline"]}))
     print(json.dumps(kernels_record(
         forms, (scan_forms, bal_forms, f32_forms), launches + bal_launches + f32_launches,
         lsh_run, lsh_rec, wave_forms, path_recs, wave_by_form, wave_launches, aug_launches,

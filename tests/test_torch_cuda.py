@@ -696,3 +696,119 @@ def test_aug_cluster_kernels_match_their_plain_versions(cuda, dtype, round_q):
         got = IC.select(dist, probes, C, k, positions=True)
         ref = IC.select_reference(dist, probes, C, k, positions=True)
         assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+
+
+# -- the pipelined surfaces on the card: pinned buffers, side streams ----------
+
+
+def _ivf_index(cuda, x, **options):
+    from zebra_tpu_torch.index.ivf_host import IVFIndex
+
+    idx = IVFIndex(dim=x.shape[1], options=T.IndexOptions(seed=0, **options))
+    assert idx.device.type == "cuda"
+    idx.add(x)
+    return idx
+
+
+def test_submits_collect_out_of_order_on_the_card(cuda):
+    """Two batches in flight, each with its own pinned readback buffer,
+    collected in the other order: each equals its own synchronous answer."""
+    x = _blobs(21, 6000, 128)
+    idx = _ivf_index(cuda, x)
+    a, b = x[:3000] + 0.01, x[3000:] - 0.01
+    want_a, want_b = idx.search_arrays(a, 10), idx.search_arrays(b, 10)
+    ta, tb = idx.search_submit(a, 10), idx.search_submit(b, 10)
+    for got, want in ((idx.search_collect(tb), want_b), (idx.search_collect(ta), want_a)):
+        assert np.array_equal(got[1], want[1]) and np.array_equal(got[2], want[2])
+        assert np.array_equal(got[0].view(np.uint32), want[0].view(np.uint32))
+
+
+@pytest.mark.parametrize("tier", ["scan", "balanced"])
+def test_mutations_between_submit_and_collect(cuda, tier):
+    """An insert that overflows the spare (so the spare grows: new slab
+    tensors), a remove of rows the batch finds, and a second insert, all
+    between submit and collect: the collect answers from the state at
+    submit, bitwise."""
+    x = _blobs(22, 4000, 128)
+    opts = dict(num_clusters=16, cluster_capacity=256, spare_capacity=1024)
+    if tier == "balanced":
+        opts.update(dtype="bfloat16", refine=0, num_probes=4)
+    idx = _ivf_index(cuda, x, **opts)
+    q = np.resize(x, (16384, 128)) + 0.01
+    want = idx.search_arrays(q, 10)
+    spare = idx.state.spare_capacity
+    tok = idx.search_submit(q, 10)
+    idx.add(_blobs(23, 3000, 128) + 3.0)  # far from every centroid's cell room
+    idx.remove(idx._slot_ids.take_list(np.unique(want[1][:50, :3])))
+    idx.add(_blobs(24, 500, 128))
+    got = idx.search_collect(tok)
+    assert idx.state.spare_capacity > spare
+    assert np.array_equal(got[1], want[1]) and np.array_equal(got[2], want[2])
+    assert np.array_equal(got[0].view(np.uint32), want[0].view(np.uint32))
+    assert not np.array_equal(idx.search_arrays(q[:50], 10)[1], want[1][:50])
+
+
+@pytest.mark.parametrize("tier", ["scan", "balanced", "f32"])
+def test_pipelined_insert_equals_span_per_call_on_the_card(cuda, tier, monkeypatch):
+    """Spans staged through the pinned ring on the copy stream while earlier
+    spans insert, slots read back two spans behind: the state is bitwise
+    that of the same spans added one call at a time (both indexes on the
+    same centroids)."""
+    from zebra_tpu_torch.index.ivf_host import IVFIndex
+
+    opts = {"scan": {}, "balanced": dict(dtype="bfloat16", refine=0),
+            "f32": dict(dtype="float32", refine=0)}[tier]
+    x = _blobs(25, 20000, 128)
+    cents = torch.from_numpy(x[:32] + 0.01).to(cuda)
+    monkeypatch.setattr(IVFIndex, "_train_centroids", lambda self, k, data: cents[:k].clone())
+    ids = [bytes([1 + i // 250, 1 + i % 250]) + b"\x03" * 14 for i in range(20000)]
+    # a spare that takes every row the cells cannot: no row waits for a retry
+    one, per = (_ivf_index(cuda, x[:4000], num_clusters=32, spare_capacity=32768, **opts)
+                for _ in range(2))
+    one.add(x[4000:], ids=ids[4000:], span_rows=2048)
+    for s in range(4000, 20000, 2048):
+        per.add(x[s : s + 2048], ids=ids[s : s + 2048])
+    for name in ("counts", "vectors", "norms", "valid", "overflow", "scales", "residual",
+                 "rscales"):
+        a, b = getattr(one.state, name), getattr(per.state, name)
+        assert (a is None) == (b is None) and (a is None or torch.equal(a, b)), name
+    assert all(one._id_to_slot._dict[i] == per._id_to_slot._dict[i] for i in ids[4000:])
+    assert one._spare_used == per._spare_used
+
+
+def test_bf16_query_wire_host_cast_equals_device_rounding(cuda):
+    """The bf16 query wire casts on the host and ships bf16: the same bits
+    as shipping f32 and rounding on the card, and so the same answers."""
+    q = _blobs(26, 4096, 128) * 3.7
+    q[0, :4] = [0.0, -0.0, 1e-40, 3.0e38]
+    host = torch.from_numpy(q).to(torch.bfloat16).to(cuda)
+    dev = torch.from_numpy(q).to(cuda).to(torch.bfloat16)
+    assert torch.equal(host.view(torch.int16), dev.view(torch.int16))
+    x = _blobs(27, 6000, 128)
+    idx = _ivf_index(cuda, x, dtype="bfloat16", refine=0, num_probes=4)
+    assert idx.options.query_wire_is_bf16()
+    got = idx.search_arrays(q[1:], 10)
+    want = idx._query_device(torch.from_numpy(q[1:]).to(cuda).to(torch.bfloat16).float(), 10,
+                             False)
+    assert np.array_equal(got[1], torch.where(want[2], want[1], -1).cpu().numpy())
+    assert np.array_equal(got[0].view(np.uint32), want[0].cpu().numpy().view(np.uint32))
+
+
+def test_ivf_submit_and_insert_do_not_sync(cuda):
+    """On IVF a submit and a span's insert queue their work without a host
+    sync (PyTorch's sync debug mode raises on one), so the host reaches the
+    collect while the card works."""
+    x = _blobs(28, 6000, 128)
+    idx = _ivf_index(cuda, x)
+    q = np.resize(x, (16384, 128)) + 0.01
+    want = idx.search_arrays(q, 10)  # warm: allocator, pinned buffers, libraries
+    staged = idx._ship_quant(TV.quantise_pair_host(_blobs(29, 500, 128)))
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        tok = idx.search_submit(q, 10)
+        slots = idx._insert_batch_dev(staged)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert slots.is_cuda and bool((slots >= 0).all())
+    got = idx.search_collect(tok)
+    assert np.array_equal(got[1], want[1])

@@ -301,12 +301,11 @@ def test_construction_needs_a_device_without_cuda(tmp_path, monkeypatch):
 def test_unported_surfaces_raise(tmp_path):
     db = T.Database.create(str(tmp_path / "u.zebra"), T.DatabaseConfig(dim=8), device="cpu")
     x = np.zeros((1, 8), np.float32)
-    for call in (lambda: db.insert_documents([b"x"]), lambda: db.deduplicate(),
-                 lambda: db.query_documents([b"x"]), lambda: db.model,
-                 lambda: db.query_stream([x]), lambda: db.model_status(),
-                 lambda: db.index.search_submit(x, 1), lambda: db.index.search_collect(None),
-                 lambda: db.index.search_stream([x], 1)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    for call in (lambda: db.insert_documents([b"x"]), lambda: db.insert_records(x, [b"x"]),
+                 lambda: db.query_documents([b"x"]), lambda: db.query_vectors(x),
+                 lambda: db.model, lambda: db.model_status(),
+                 lambda: db.query(x, 1, with_documents=True)):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 4"):
             call()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         T.Database.create(str(tmp_path / "f.zebra"),

@@ -8,12 +8,14 @@ default) every insert span is logged as an fsync'd record BEFORE the index
 mutation runs (q8 for the refined int8 tier, bf16 where the wire is bf16 — the
 bf16 slab and plain int8 —, f32 otherwise), and every remove is logged before
 it tombstones; ``open`` replays the log onto the last snapshot (idempotent by
-id).
+id). ``query_stream`` keeps one batch in flight (each submit under the read
+lock, collects lock-free); ``deduplicate`` finds exact duplicates, logs their
+removal, then removes them; ``stats`` holds the facade's stage timers.
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP.md
 entry, queue 1): documents and blobs with their embedding models and
-``model_status``, ``deduplicate`` (needs ``ops/rowhash``), the pipelined
-``query_stream``, the background log fold and retrain workers, and the CLI.
+``model_status`` (item 4), the background log fold and retrain workers
+(item 8), and the CLI.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ import numpy as np
 
 from zebra_tpu_torch.config import DatabaseConfig
 from zebra_tpu_torch.index import load_index, make_index
+from zebra_tpu_torch.profiling import Stats, timed
 from zebra_tpu_torch.storage.deltalog import DeltaLog
 from zebra_tpu_torch.utils import RWLock, fsync_write, uuid7_batch, uuid7_bytes, uuid_hex
 
@@ -54,6 +57,8 @@ class Database:
         #: reopens its own document store (the port writes no documents)
         self._blobs = blobs or {"codec": "zlib", "blob_backend": "files"}
         self._delta = DeltaLog(os.path.join(self._data_dir(), "delta.log"))
+        #: per-database operation counters (insert / query timings and rates)
+        self.stats = Stats()
         #: queries share, mutations exclude
         self._lock = RWLock()
 
@@ -180,10 +185,11 @@ class Database:
         def cb(span, parts):
             start, count = span
             sids = ids[start : start + count]
-            if parts is not None:
-                self._delta.append_insert_q8(sids, *parts)
-            else:
-                self._delta.append_insert(sids, vectors[start : start + count], bf16=bf16)
+            with timed("insert.wal", items=count, stats=self.stats):
+                if parts is not None:
+                    self._delta.append_insert_q8(sids, *parts)
+                else:
+                    self._delta.append_insert(sids, vectors[start : start + count], bf16=bf16)
 
         return cb
 
@@ -198,43 +204,96 @@ class Database:
             return None
         return 16384
 
+    def _insert_blocks(self, v: np.ndarray, ids: list[bytes]) -> None:
+        """The shared insert body (``zebra_tpu/db.py:975-1013``, without the
+        blob stage): write-locked per block of :data:`_INSERT_LOCK_BLOCK`
+        rows (a cold build holds one lock), per-span fsync'd log records
+        inside the index's pipeline, then the manifest."""
+        n = v.shape[0]
+        w = n if (self.index.state is None or n <= _INSERT_LOCK_BLOCK) else _INSERT_LOCK_BLOCK
+        for s in range(0, n, w):
+            e = min(n, s + w)
+            bids, bv = ids[s:e], v[s:e]
+            with self._lock.write(), timed("insert", items=e - s, stats=self.stats):
+                with timed("insert.index", items=e - s, stats=self.stats):
+                    self.index.add(bv, ids=bids, wal_cb=self._wal_callback(bids, bv),
+                                   span_rows=self._insert_span_rows(e - s))
+                self._write_manifest(self.path)
+
     def insert_vectors(self, vectors: np.ndarray) -> list[bytes]:
         """Vector-only insert; returns the new ids."""
         v = np.asarray(vectors, dtype=np.float32)
         if v.ndim == 1:
             v = v[None, :]
-        n = v.shape[0]
-        if not n:
+        if not v.shape[0]:
             return []
-        ids = uuid7_batch(n)
-        w = n if (self.index.state is None or n <= _INSERT_LOCK_BLOCK) else _INSERT_LOCK_BLOCK
-        for s in range(0, n, w):
-            bids = ids[s : s + w]
-            with self._lock.write():
-                self.index.add(v[s : s + w], ids=bids, wal_cb=self._wal_callback(bids, v[s : s + w]),
-                               span_rows=self._insert_span_rows(len(bids)))
-                self._write_manifest(self.path)
+        ids = uuid7_batch(v.shape[0])
+        self._insert_blocks(v, ids)
         return ids
+
+    def _log_remove(self, ids: list[bytes]) -> None:
+        """Write-ahead remove record. Replaying a remove that never ran (a
+        crash before the index mutation) redoes it."""
+        if self.config.durability == "full" and ids:
+            self._delta.append_remove(ids)
 
     def remove(self, ids: list[bytes]) -> None:
         """Remove records: log the ids present, then tombstone them."""
         with self._lock.write():
             present = [i for i in ids if i in self.index]
-            if self.config.durability == "full" and present:
-                self._delta.append_remove(present)
+            self._log_remove(present)
             self.index.remove(present)
+            self._write_manifest(self.path)
+
+    def deduplicate(self) -> None:
+        """Drop exact duplicate vectors, keeping the smallest id of each
+        group. The duplicates are found without mutating
+        (``index.find_duplicates``), so the removal is logged first, like any
+        other remove."""
+        with self._lock.write():
+            dup = self.index.find_duplicates()
+            self._log_remove(dup)
+            self.index.remove(dup)
             self._write_manifest(self.path)
 
     def query(self, vectors: np.ndarray, number_of_results: int = 10,
               with_documents: bool = False):
         """Per-query ``[(id, distance), ...]``, nearest first."""
         if with_documents:
-            _not_ported("with_documents", "ROADMAP.md queue 1, documents and blobs")
+            _not_ported("with_documents", "ROADMAP.md queue 1, item 4: documents and blobs")
         if self.index.no_vectors():
             v = np.asarray(vectors)
             return [[] for _ in range(1 if v.ndim == 1 else v.shape[0])]
         with self._lock.read():
             return self.index.search(np.asarray(vectors, dtype=np.float32), number_of_results)
+
+    def query_stream(self, batches, number_of_results: int = 10):
+        """Pipelined per-batch queries: yields one :meth:`query`-shaped list
+        per input batch with one batch in flight, so batch t's readback and
+        formatting overlap batch t+1's upload and device work.
+
+        Each submit takes the shared read lock; collects run lock-free. A
+        mutation between them is queued on the device after the submitted
+        query, which therefore answers from the state before it (ids of
+        slots removed meanwhile come back as the all-zero id, as in the JAX
+        package)."""
+        pending = None
+        for batch in batches:
+            b = np.asarray(batch, dtype=np.float32)
+            nq = 1 if b.ndim == 1 else b.shape[0]
+            if self.index.no_vectors():
+                if pending is not None:
+                    yield self.index._format_results(*self.index.search_collect(pending))
+                    pending = None
+                yield [[] for _ in range(nq)]
+                continue
+            with self._lock.read(), timed("query", items=nq, stats=self.stats):
+                tok = self.index.search_submit(b, number_of_results)
+            if pending is not None:
+                yield self.index._format_results(*self.index.search_collect(pending))
+            pending = tok
+        if pending is not None:
+            yield self.index._format_results(*self.index.search_collect(pending))
 
     def __len__(self) -> int:
         return len(self.index)
@@ -242,26 +301,21 @@ class Database:
     # -- not ported yet ------------------------------------------------------------------
 
     def insert_documents(self, documents):
-        _not_ported("insert_documents", "ROADMAP.md queue 1, documents and blobs")
+        _not_ported("insert_documents", "ROADMAP.md queue 1, item 4: documents and blobs")
 
     def insert_records(self, embeddings, documents):
-        _not_ported("insert_records", "ROADMAP.md queue 1, documents and blobs")
+        _not_ported("insert_records", "ROADMAP.md queue 1, item 4: documents and blobs")
 
     def query_documents(self, documents, number_of_results: int = 1):
-        _not_ported("query_documents", "ROADMAP.md queue 1, documents and blobs")
+        _not_ported("query_documents", "ROADMAP.md queue 1, item 4: documents and blobs")
 
     def query_vectors(self, vectors, number_of_results: int = 1):
-        _not_ported("query_vectors", "ROADMAP.md queue 1, documents and blobs")
-
-    def query_stream(self, batches, number_of_results: int = 10):
-        _not_ported("query_stream", "ROADMAP.md queue 1, pipelined staging")
+        _not_ported("query_vectors", "ROADMAP.md queue 1, item 4: documents and blobs")
 
     def model_status(self) -> dict:
-        _not_ported("model_status", "ROADMAP.md queue 1, documents and blobs")
-
-    def deduplicate(self) -> None:
-        _not_ported("deduplicate", "ROADMAP.md queue 1, deduplicate/rowhash")
+        _not_ported("model_status", "ROADMAP.md queue 1, item 4: documents, blobs and the hash model")
 
     @property
     def model(self):
-        _not_ported("embedding models", "ROADMAP.md queue 1, the towers")
+        _not_ported("embedding models", "ROADMAP.md queue 1, item 4 (the hash model) and "
+                    "item 9 (the towers)")

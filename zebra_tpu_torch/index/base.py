@@ -1,24 +1,35 @@
 """Host orchestration shared by index backends (port of the subset of
 ``zebra_tpu/index/base.py`` the facade uses).
 
-Owns id <-> slot maps, insert batching, result formatting, inline
-rebuilds (a backend's ``_rebuild_reason`` checked after every add and remove)
-and the snapshot format (``index.json`` meta + ``arrays.npz``, the same files
-the JAX package writes). Inserts run span by span with no pipelining yet
-(ROADMAP.md queue 1, pipelined staging); rebuilds run inline, never on a
-background worker (queue 1, item 8).
+Owns id <-> slot maps, the pipelined insert, the pipelined query surface
+(``search_submit`` / ``search_collect`` / ``search_stream``), result
+formatting, deduplication, inline rebuilds (a backend's ``_rebuild_reason``
+checked after every add and remove; never on a background worker, ROADMAP.md
+queue 1, item 8) and the snapshot format (``index.json`` meta +
+``arrays.npz``, the same files the JAX package writes).
+
+Where the JAX package relies on asynchronous dispatch, the port orders its
+copies with CUDA streams and events: host data goes through pinned buffers
+and ``non_blocking`` copies on a side stream for each direction, the device
+work stays on the current stream (every mutation and every kernel launch
+runs there, so a query queued before a mutation reads the state before it),
+and the current stream waits on a copy's event only where it consumes the
+copy. On CPU tensors the same code runs with synchronous copies and no
+pinning.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 
 import numpy as np
 import torch
 
 from zebra_tpu_torch.config import IndexOptions
+from zebra_tpu_torch.profiling import timed
 from zebra_tpu_torch.utils import fsync_write, next_pow2, uuid7_batch
 
 #: insert span width (vectors per device insert)
@@ -27,8 +38,10 @@ BATCH = 65536
 _MIN_BATCH = 256
 
 _ZERO_ID = b"\x00" * 16
-_PIPELINED = ("the pipelined search surface (search_submit / search_collect / search_stream) "
-              "is not ported to the torch package yet (ROADMAP.md queue 1, pipelined staging)")
+#: pinned host buffers an index stages insert spans through, reused in turn
+_RING_SLOTS = 3
+#: byte alignment of the parts packed into one staging buffer
+_ALIGN = 16
 
 
 def default_device() -> str:
@@ -41,6 +54,75 @@ def default_device() -> str:
             "otherwise; pass device='cpu' for a CPU run"
         )
     return "cuda"
+
+
+@dataclasses.dataclass
+class Staged:
+    """One span or query batch on the device: its tensor (or tuple of
+    tensors) and the event of the copy that fills it (None for a CPU tensor
+    or a slice of device rows). Consumers call ``BaseVectorIndex._ready``."""
+
+    parts: object
+    event: object = None
+
+
+class PinnedRing:
+    """A few pinned host buffers handed out in turn. A buffer is handed out
+    again only after the copy that last read it has completed (its event),
+    so the pinned memory of a long insert stays at a few spans."""
+
+    def __init__(self, slots: int = _RING_SLOTS):
+        self._bufs: list = [None] * slots
+        self._events: list = [None] * slots
+        self._next = 0
+
+    def take(self, nbytes: int) -> tuple[torch.Tensor, int]:
+        """``(pinned uint8 buffer of nbytes, its ring index)``; blocks until
+        the buffer's previous copy has completed."""
+        i = self._next
+        self._next = (i + 1) % len(self._bufs)
+        if self._events[i] is not None:
+            self._events[i].synchronize()
+            self._events[i] = None
+        if self._bufs[i] is None or self._bufs[i].numel() < nbytes:
+            self._bufs[i] = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+        return self._bufs[i][:nbytes], i
+
+    def done(self, i: int, event) -> None:
+        """The copy reading buffer ``i`` was queued; ``event`` follows it."""
+        self._events[i] = event
+
+
+def _layout(parts) -> tuple[list[int], int]:
+    """Byte offsets of ``[(shape, dtype), ...]`` packed into one buffer, each
+    aligned to :data:`_ALIGN`, and the buffer's size."""
+    offs, o = [], 0
+    for shape, dt in parts:
+        offs.append(o)
+        o += -(-math.prod(shape) * dt.itemsize // _ALIGN) * _ALIGN
+    return offs, max(o, _ALIGN)
+
+
+def _views(buf: torch.Tensor, parts, offs) -> list[torch.Tensor]:
+    """Typed views of the parts laid out in the uint8 buffer ``buf``."""
+    return [buf[o : o + math.prod(shape) * dt.itemsize].view(dt).view(shape)
+            for (shape, dt), o in zip(parts, offs)]
+
+
+def _pack_results(d: torch.Tensor, s: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """``(dists f32, slots, valid)`` as ONE ``[B, 2k]`` int32 tensor, so a
+    query batch comes back in one device -> host copy: the distance bits
+    beside the slots, -1 where invalid (the JAX package's ``_pack_results``)."""
+    bits = d.float().contiguous().view(torch.int32)
+    return torch.cat([bits, torch.where(v, s, -1).to(torch.int32)], 1)
+
+
+def _unpack_results(packed: np.ndarray, nq: int, k: int):
+    """``(dists [nq, k] f32, slots [nq, k] int64, valid [nq, k])`` of a
+    packed readback, copied out of it."""
+    d = np.ascontiguousarray(packed[:nq, :k]).view(np.float32)
+    s = packed[:nq, k : 2 * k].astype(np.int64)
+    return d, s, s >= 0
 
 
 class SlotIdArena:
@@ -76,6 +158,10 @@ class SlotIdArena:
     def take_list(self, slots: np.ndarray) -> list[bytes]:
         flat = self._arr[np.asarray(slots, dtype=np.int64)].tobytes()
         return [flat[o : o + 16] for o in range(0, len(flat), 16)]
+
+    def rows(self, slots: np.ndarray) -> np.ndarray:
+        """``[m, 16]`` uint8 id rows of an int slot array."""
+        return self._arr[np.asarray(slots, dtype=np.int64)]
 
     def bulk_bytes(self, slots: np.ndarray) -> bytes:
         return self._arr[np.asarray(slots, dtype=np.int64)].tobytes()
@@ -118,10 +204,11 @@ class IdSlotMap:
 class BaseVectorIndex:
     """Host-side index facade: id maps, batching, persistence.
 
-    Subclasses implement ``_fresh_state``, ``_insert_batch_dev``,
+    Subclasses implement ``_fresh_state``, ``_insert_batch_dev`` (slots as a
+    device tensor, or as a host array where the host knows them),
     ``_resolve_failed``, ``_delete_slots_device``, ``_query_device``,
     ``_snapshot_arrays`` and ``_restore_arrays``; the array wire
-    (``_stage_span``) may be replaced; the rebuild policy hooks
+    (``_stage_span``) and ``_take_rows`` may be replaced; the rebuild policy hooks
     (``_rebuild_reason``, ``_pre_rebuild``, ``_reset_alloc_mirrors``) and the
     snapshot meta hooks (``_meta_extra``, ``_apply_meta_extra``,
     ``_after_restore``) are optional.
@@ -154,6 +241,10 @@ class BaseVectorIndex:
         #: parts)``, called after the span is quantised and before its insert
         self._wal_cb = None
         self._span_rows = None
+        #: (host -> device, device -> host) copy streams, made at first use
+        self._copy_streams = None
+        #: pinned buffers of the insert pipeline, made at first use
+        self._ring = None
 
     # -- introspection --------------------------------------------------------
 
@@ -208,7 +299,8 @@ class BaseVectorIndex:
                 if self._cold_build(vectors, ids):
                     self._maybe_rebuild()
                     return ids
-                self.state = self._fresh_state(n, vectors)
+                with timed("insert.coldstate", items=n):
+                    self.state = self._fresh_state(n, vectors)
             self._before_batches(n)
             self._insert_batches(vectors, ids)
             self._maybe_rebuild()
@@ -262,24 +354,112 @@ class BaseVectorIndex:
         """Host -> device bytes per staged row."""
         return self._dev_dim * self._wire_dtype.itemsize
 
-    def _stage_span(self, vectors, span):
+    # -- staging ------------------------------------------------------------------
+
+    def _streams(self):
+        """The (host -> device, device -> host) side streams of the index's
+        copies."""
+        if self._copy_streams is None:
+            self._copy_streams = (torch.cuda.Stream(self.device), torch.cuda.Stream(self.device))
+        return self._copy_streams
+
+    def _ship(self, parts, fill, ring: bool = False) -> Staged:
+        """Fill one host buffer laid out as ``parts`` (``[(shape, dtype),
+        ...]``; ``fill(views)`` writes the host data) and ship it to the
+        device. On the card the buffer is pinned (from the index's
+        :class:`PinnedRing` when ``ring``, else a fresh one), its copy runs
+        ``non_blocking`` on the host -> device stream and the result carries
+        the copy's event; the device buffer is recorded on the current
+        stream, which consumes it, so the allocator keeps it until that
+        stream's work is done. On the CPU the host buffer is the result."""
+        offs, nbytes = _layout(parts)
+        if self.device.type != "cuda":
+            buf = torch.empty(nbytes, dtype=torch.uint8)
+            views = _views(buf, parts, offs)
+            fill(views)
+            return Staged(views[0] if len(parts) == 1 else tuple(views))
+        if ring:
+            if self._ring is None:
+                self._ring = PinnedRing()
+            host, slot = self._ring.take(nbytes)
+        else:
+            host = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+        fill(_views(host, parts, offs))
+        h2d = self._streams()[0]
+        with torch.cuda.stream(h2d):
+            dev = torch.empty(nbytes, dtype=torch.uint8, device=self.device)
+            dev.copy_(host, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record(h2d)
+        if ring:
+            self._ring.done(slot, event)
+        dev.record_stream(torch.cuda.current_stream(self.device))
+        views = _views(dev, parts, offs)
+        return Staged(views[0] if len(parts) == 1 else tuple(views), event)
+
+    def _ready(self, staged: Staged):
+        """The staged tensors, with the current stream ordered after their
+        copy (the host does not wait)."""
+        if staged.event is not None:
+            torch.cuda.current_stream(self.device).wait_event(staged.event)
+        return staged.parts
+
+    def _download(self, t):
+        """Queue a copy of device tensor ``t`` into a fresh pinned buffer on
+        the device -> host stream, after the work queued so far on the
+        current stream. The handle holds ``t`` until :meth:`_fetch` (the
+        allocator must not hand its memory to other work before the copy
+        has read it). Host arrays and CPU tensors pass through."""
+        if not isinstance(t, torch.Tensor) or t.device.type != "cuda":
+            return (t, None, None)
+        d2h = self._streams()[1]
+        d2h.wait_stream(torch.cuda.current_stream(self.device))
+        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        with torch.cuda.stream(d2h):
+            host.copy_(t, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record(d2h)
+        return (host, event, t)
+
+    @staticmethod
+    def _fetch(handle) -> np.ndarray:
+        """Wait for a :meth:`_download` and return its host array (the
+        caller copies out what it keeps: the pinned buffer is reused once
+        the handle is dropped)."""
+        host, event, _ = handle
+        if event is not None:
+            event.synchronize()
+        return host.numpy() if isinstance(host, torch.Tensor) else np.asarray(host)
+
+    def _stage_span(self, vectors, span) -> Staged:
         """One span on the device at the stored width: a slice of a device
         source (a rebuild's rows), or host rows zero-padded, cast to the wire
-        type on the host and shipped. A host span's f32 / bf16 write-ahead
-        record is written after its copy is queued and before its insert."""
+        type on the host and shipped through the pinned ring. A host span's
+        f32 / bf16 write-ahead record is written after its copy is queued
+        (the fsync overlaps the copy) and before its insert."""
         start, count = span
         if isinstance(vectors, torch.Tensor):
-            return vectors[start : start + count]
-        batch = self._ship_rows(vectors[start : start + count], self._wire_dtype)
+            return Staged(vectors[start : start + count])
+        staged = self._ship_rows(vectors[start : start + count], self._wire_dtype, ring=True)
         if self._wal_cb is not None:
             self._wal_cb(span, None)
-        return batch
+        return staged
 
-    def _ship_rows(self, rows, dtype: torch.dtype) -> torch.Tensor:
+    def _ship_rows(self, rows, dtype: torch.dtype, ring: bool = False) -> Staged:
         """Host rows zero-padded to the stored width, cast to ``dtype`` on
-        the host and copied to the device."""
-        rows = self._pad_dim(np.ascontiguousarray(rows, dtype=np.float32))
-        return torch.from_numpy(rows).to(dtype).to(self.device)
+        the host and shipped (:meth:`_ship`)."""
+        rows = np.ascontiguousarray(rows, dtype=np.float32)
+        if rows.ndim == 1:
+            rows = rows[None, :]
+        n, d = rows.shape
+
+        def fill(views):
+            out = views[0]
+            out[:, :d].copy_(torch.from_numpy(rows))
+            if self._dev_dim > d:
+                out[:, d:].zero_()
+
+        return self._ship([((n, self._dev_dim), dtype)], fill, ring)
 
     def _span_width(self) -> int:
         return int(self._span_rows) if self._span_rows else BATCH
@@ -288,21 +468,46 @@ class BaseVectorIndex:
         w = self._span_width()
         return [(s, min(n - s, w)) for s in range(0, n, w)]
 
-    def _insert_batches(self, vectors, ids: list[bytes], staged=None) -> None:
-        """Stage and insert span by span; ``vectors`` is a host array or a
-        device tensor already at the stored width (a rebuild's source).
-        ``staged`` optionally holds spans already staged (cold build)."""
-        for i, span in enumerate(self._spans(vectors.shape[0])):
+    def _insert_batches(self, vectors, ids: list[bytes], prestaged=None) -> None:
+        """Pipelined insert (``zebra_tpu/index/base.py:692-752``): span t+1
+        is staged while span t's insert runs on the device, and slots are
+        read back two spans behind, so host work, copies and device work
+        overlap. ``vectors`` is a host array or a device tensor already at
+        the stored width (a rebuild's source); ``prestaged`` optionally holds
+        spans already staged (the cold build's window; None entries are
+        staged here)."""
+        spans = self._spans(vectors.shape[0])
+
+        def stage(i):
+            if prestaged is not None and prestaged[i] is not None:
+                return prestaged[i]
+            with timed("insert.stage", items=spans[i][1]):
+                return self._stage_span(vectors, spans[i])
+
+        def resolve(span, handle):
             start, count = span
-            batch = staged[i] if staged is not None and i < len(staged) else None
-            if batch is None:
-                batch = self._stage_span(vectors, span)
-            slots = self._insert_batch_dev(batch)
+            with timed("insert.resolve", items=count):
+                slots = self._fetch(handle)[:count].astype(np.int64)
             failed = slots < 0
             if failed.any():
                 rows = np.asarray(vectors[start : start + count][failed], np.float32)
                 slots[failed] = self._resolve_failed(rows)
             self._register_slots(ids[start : start + count], slots)
+
+        inflight = []
+        nxt = stage(0)
+        for i, span in enumerate(spans):
+            cur = nxt
+            if i + 1 < len(spans):
+                nxt = stage(i + 1)  # its copy overlaps this span's insert
+            with timed("insert.dispatch", items=span[1]):
+                inflight.append((span, self._download(self._insert_batch_dev(cur))))
+            if prestaged is not None:
+                prestaged[i] = None  # the staged span's memory goes with its insert
+            if len(inflight) > 2:
+                resolve(*inflight.pop(0))
+        for item in inflight:
+            resolve(*item)
 
     def _register_slots(self, ids: list[bytes], slots: np.ndarray) -> None:
         self._slot_ids.set_many(slots, ids)
@@ -325,6 +530,53 @@ class BaseVectorIndex:
             self._delete_slots_device(np.asarray(slots, np.int64))
             self._maybe_rebuild()
         return removed
+
+    def deduplicate(self) -> list[bytes]:
+        """Remove exact duplicate vectors, keeping the smallest id of each
+        group; returns the removed ids."""
+        return self.remove(self.find_duplicates())
+
+    def find_duplicates(self) -> list[bytes]:
+        """Ids of exact duplicate vectors (all but the smallest id of each
+        group), without mutating, so that the facade can log the removal
+        first (``zebra_tpu/index/base.py:776-816``). Rows hash on the device
+        (two 32-bit keys a row, 8 bytes read back instead of the slab); only
+        colliding groups gather their stored values for the host to confirm."""
+        if self.state is None or not self._id_to_slot:
+            return []
+        from zebra_tpu_torch.ops.rowhash import row_hashes
+
+        slots = self._slot_ids.live_slots()
+        hashes = row_hashes(self.state.vectors).cpu().numpy()
+        keys = hashes[slots].astype(np.int64)
+        keys = (keys[:, 0] << 32) ^ (keys[:, 1] & 0xFFFFFFFF)
+        order = np.argsort(keys, kind="stable")  # slots ascending within ties
+        ks = keys[order]
+        group_start = np.concatenate([[True], ks[1:] != ks[:-1]])
+        gid = np.cumsum(group_start) - 1
+        in_collision = np.bincount(gid)[gid] > 1
+        if not in_collision.any():
+            return []
+        sus = slots[order[in_collision]]  # ascending within each hash group
+        sus_rows = self._take_rows(sus).float().cpu().numpy()
+        view = np.ascontiguousarray(sus_rows).view(np.uint32).reshape(len(sus), -1)
+        _, inv = np.unique(view, axis=0, return_inverse=True)
+        inv = inv.reshape(-1)
+        # the smallest id of each exact group stays: independent of the slot
+        # layout and, uuid7 ids being monotone, the earliest inserted
+        idrows = self._slot_ids.rows(sus)
+        hi = np.ascontiguousarray(idrows[:, :8]).view(">u8")[:, 0]
+        lo = np.ascontiguousarray(idrows[:, 8:]).view(">u8")[:, 0]
+        order2 = np.lexsort((lo, hi, inv))  # group-major, id-minor
+        inv_sorted = inv[order2]
+        first = np.concatenate([[True], inv_sorted[1:] != inv_sorted[:-1]])
+        return self._slot_ids.take_list(sus[order2[~first]])
+
+    def _take_rows(self, slots: np.ndarray) -> torch.Tensor:
+        """Device gather of slab rows as stored values (int8 backends
+        dequantise: codes without their scales do not compare across rows)."""
+        return self.state.vectors[torch.as_tensor(np.asarray(slots, np.int64),
+                                                  device=self.state.vectors.device)]
 
     def clear(self) -> None:
         self.state = None
@@ -359,10 +611,12 @@ class BaseVectorIndex:
         rows, then the live rows plus the new state."""
         self._wal_cb = None  # re-inserted rows are already logged
         self._pre_rebuild(reason)
-        order, ids = self._live_order_ids()
-        data = self._gather_live(order) if len(order) else None
+        with timed("rebuild.capture"):
+            order, ids = self._live_order_ids()
+            data = self._take_rows(order) if len(order) else None
         self.state = None  # free the old structures before the new ones
-        self._shadow_begin(len(ids), data)
+        with timed("rebuild.state", items=len(ids)):
+            self._shadow_begin(len(ids), data)
         self._slot_ids = SlotIdArena()
         self._id_to_slot = IdSlotMap()
         self._reset_alloc_mirrors()
@@ -373,11 +627,6 @@ class BaseVectorIndex:
         """(ascending live slots, their ids)."""
         order = self._slot_ids.live_slots()
         return order, self._slot_ids.take_list(order)
-
-    def _gather_live(self, order) -> torch.Tensor:
-        """Device gather of the stored rows of ``order`` (stored values)."""
-        return self.state.vectors[torch.as_tensor(np.asarray(order, np.int64),
-                                                  device=self.state.vectors.device)]
 
     def _shadow_begin(self, n_total: int, sample) -> None:
         """Allocate fresh state sized for ``n_total`` vectors, trained on the
@@ -392,15 +641,6 @@ class BaseVectorIndex:
 
     # -- search -----------------------------------------------------------------
 
-    def search_submit(self, queries, k: int, exact: bool = False):
-        raise NotImplementedError(_PIPELINED)
-
-    def search_collect(self, token):
-        raise NotImplementedError(_PIPELINED)
-
-    def search_stream(self, batches, k: int, exact: bool = False):
-        raise NotImplementedError(_PIPELINED)
-
     def search(self, queries: np.ndarray, k: int, exact: bool = False):
         """Per-query ``[(id, distance), ...]`` sorted ascending."""
         if self.state is None or not self._id_to_slot:
@@ -410,14 +650,51 @@ class BaseVectorIndex:
 
     def search_arrays(self, queries: np.ndarray, k: int, exact: bool = False):
         """``(dists [B, k] f32, slots [B, k] int64, valid [B, k])`` as numpy."""
+        return self.search_collect(self.search_submit(queries, k, exact))
+
+    def search_submit(self, queries: np.ndarray, k: int, exact: bool = False):
+        """Queue one query batch without waiting for it; returns a token for
+        :meth:`search_collect`.
+
+        The queries are padded and cast to the query wire on the host (bf16
+        where ``query_wire_is_bf16``, as the JAX package ships them, else
+        f32), staged through a pinned buffer and copied on the host -> device
+        stream; the device query runs on the current stream after that copy,
+        and its results, packed into one ``[B, 2k]`` int32 tensor, are copied
+        into the token's own pinned buffer on the device -> host stream. On
+        IVF nothing here waits for the device; LSH reads two values back
+        mid-query (its candidate width and its re-rank's last step). The
+        token holds the device tensors its copies read. Mutations between
+        submit and collect run on the current stream after the queued query,
+        so the token answers from the state as it was at submit."""
         q = np.asarray(queries, dtype=np.float32)
         if q.ndim == 1:
             q = q[None, :]
-        qt = torch.from_numpy(np.ascontiguousarray(q)).to(self.device)
-        if self.options.query_wire_is_bf16():
-            qt = qt.to(torch.bfloat16).float()  # the half-width query wire's rounding
-        d, s, v = self._query_device(qt, k, exact)
-        return d.cpu().numpy(), s.cpu().numpy(), v.cpu().numpy()
+        wire = torch.bfloat16 if self.options.query_wire_is_bf16() else torch.float32
+        qt = self._ready(self._ship_rows(q, wire)).float()
+        packed = _pack_results(*self._query_device(qt, k, exact))
+        return self._download(packed), q.shape[0], k
+
+    def search_collect(self, token):
+        """Resolve a :meth:`search_submit` token into ``(dists [B, k], slots
+        [B, k] int64, valid [B, k])``: one wait for its readback. Tokens may
+        be collected in any order."""
+        handle, nq, k = token
+        return _unpack_results(self._fetch(handle), nq, k)
+
+    def search_stream(self, batches, k: int, exact: bool = False):
+        """Yields :meth:`search`-formatted results per input batch, keeping
+        one batch in flight: batch t+1 is submitted before batch t is
+        collected, so its upload and device work overlap t's readback and
+        formatting."""
+        pending = None
+        for batch in batches:
+            tok = self.search_submit(batch, k, exact)
+            if pending is not None:
+                yield self._format_results(*self.search_collect(pending))
+            pending = tok
+        if pending is not None:
+            yield self._format_results(*self.search_collect(pending))
 
     def _format_results(self, dists, slots, valid):
         """(dists, slots, valid) -> per-query [(id, distance), ...] with one

@@ -28,9 +28,9 @@ import dataclasses
 import numpy as np
 import torch
 
-from zebra_tpu_torch.index.ivf import _wrap32
 from zebra_tpu_torch.ops import distances as D
 from zebra_tpu_torch.ops import hashing as H
+from zebra_tpu_torch.ops.rowhash import _mix32, _wrap32
 from zebra_tpu_torch.ops import topk as TK
 from zebra_tpu_torch.storage.snapshots import slab_from_np
 
@@ -126,16 +126,6 @@ def state_from_numpy(arrays, device="cpu", dtype=None) -> LSHState:
 # ---------------------------------------------------------------------------
 # Insert
 # ---------------------------------------------------------------------------
-
-
-def _mix32(x: torch.Tensor) -> torch.Tensor:
-    """The JAX package's int32 murmur3-finalizer mixer, on int64 tensors
-    holding int32 values: wrap-around products, LOGICAL right shifts."""
-    x = _wrap32(x ^ ((x & 0xFFFFFFFF) >> 16))
-    x = _wrap32(x * -2048144789)  # 0x85ebca6b
-    x = _wrap32(x ^ ((x & 0xFFFFFFFF) >> 13))
-    x = _wrap32(x * -1028477387)  # 0xc2b2ae35
-    return _wrap32(x ^ ((x & 0xFFFFFFFF) >> 16))
 
 
 def _append(buckets: torch.Tensor, counts: torch.Tensor, codes: torch.Tensor,

@@ -21,6 +21,7 @@ import torch
 
 from zebra_tpu_torch.ops import distances as D
 from zebra_tpu_torch.ops import topk as TK
+from zebra_tpu_torch.ops.rowhash import _wrap32
 from zebra_tpu_torch.storage.snapshots import slab_from_np
 
 #: f32 reciprocal of 127 — int8 quantisation multiplies by it (as the JAX
@@ -33,6 +34,8 @@ QUANT_SPAN = 65536
 _CHOICE_TILE_ELEMS = 1 << 28
 #: eager block re-ranks taken because k exceeded the kernel's MAX_K
 EAGER_LARGE_K = 0
+#: host pair quantisations by path: the native kernel or the numpy emulation
+QUANT_CALLS = {"native": 0, "numpy": 0}
 
 
 @dataclasses.dataclass
@@ -159,12 +162,6 @@ def _cell_choice(x32: torch.Tensor, centroids: torch.Tensor, metric: str, A: int
     return torch.cat(out)
 
 
-def _wrap32(x: torch.Tensor) -> torch.Tensor:
-    """int64 -> the int32 value with the same low 32 bits (two's complement)."""
-    x = x & 0xFFFFFFFF
-    return torch.where(x >= 2**31, x - 2**32, x)
-
-
 def _jitter(n: int, A: int, device) -> torch.Tensor:
     """Per-row fallback rotation ``r0`` of the JAX placement (ivf.py:234-236):
     int32 wrap-around products, a LOGICAL right shift and ``lax.rem``
@@ -203,7 +200,8 @@ def _place_rows(state: IVFState, x32: torch.Tensor, spill: int, metric: str):
         pos = counts[torch.clamp(c, 0, K - 1)].long() + rank
         ok = ~assigned & (pos < C)
         slots = torch.where(ok, c * C + pos, slots)
-        counts.index_add_(0, c[ok], torch.ones_like(c[ok], dtype=torch.int32))
+        # rows not placed this round add 0 (no boolean compaction: no sync)
+        counts.index_add_(0, torch.where(ok, c, 0), ok.to(torch.int32))
         assigned |= ok
     # final round: the rest goes to the shared spare region
     G = state.spare_capacity
@@ -216,10 +214,29 @@ def _place_rows(state: IVFState, x32: torch.Tensor, spill: int, metric: str):
 
 
 def quantise_pair_host(x: np.ndarray, span: int = QUANT_SPAN):
-    """Host int8 + residual quantisation, ``(v8, r8, scale, rscale)``.
+    """Host int8 + residual quantisation, ``(v8, r8, scale, rscale)``,
+    bitwise the JAX package's ``quantise_pair_host``.
 
-    Bitwise the JAX package's ``_quantise_pair_numpy`` (the f64 emulation of
-    the device path's FMA residual), run per ``span`` rows."""
+    The native kernel (``native/zebra_quant.cpp``, hardware ``fmaf``) where
+    ``g++`` built it, as the JAX package dispatches; else
+    :func:`quantise_pair_numpy` per ``span`` rows. :data:`QUANT_CALLS`
+    counts the calls by path."""
+    from zebra_tpu_torch.native import quant as NQ
+
+    x32 = np.ascontiguousarray(x, dtype=np.float32)
+    if x32.ndim == 2:
+        parts = NQ.quantise_pair(x32)
+        if parts is not None:
+            QUANT_CALLS["native"] += 1
+            return parts
+    QUANT_CALLS["numpy"] += 1
+    return quantise_pair_numpy(x32, span)
+
+
+def quantise_pair_numpy(x: np.ndarray, span: int = QUANT_SPAN):
+    """The numpy path of :func:`quantise_pair_host` for hosts without a
+    toolchain: the JAX package's ``_quantise_pair_numpy`` (the f64 emulation
+    of the device path's FMA residual), run per ``span`` rows."""
     x32 = np.ascontiguousarray(x, dtype=np.float32)
     n, d = x32.shape
     v8 = np.empty((n, d), np.int8)
@@ -245,6 +262,34 @@ def quantise_pair_host(x: np.ndarray, span: int = QUANT_SPAN):
     return v8, r8, scale, rscale
 
 
+def _write_plan(slots: torch.Tensor):
+    """How an insert writes its placed rows without a host sync (the JAX
+    package scatters with ``mode="drop"``; a boolean compaction ``slots[ok]``
+    would read the placed count back). Every row writes: a placed row its
+    own values to its slot, a dropped row (slot -1) the first placed row's
+    values to that row's slot again, so duplicate targets carry equal values
+    and the bits are those of writing the placed rows alone. With no row
+    placed, every row rewrites slot 0 with what it holds.
+
+    Returns ``(target [n], source row [n], any row placed [1] bool)``
+    (``index_select`` with a one-element index: indexing by a 0-d tensor
+    reads it on the host)."""
+    ok = slots >= 0
+    first = torch.argmax(ok.to(torch.int32)).reshape(1)  # the first placed row (0: none)
+    placed = ok.index_select(0, first)
+    target = torch.where(ok, slots, torch.where(placed, slots.index_select(0, first), 0))
+    source = torch.where(ok, torch.arange(slots.shape[0], device=slots.device), first)
+    return target, source, placed
+
+
+def _put_rows(dst: torch.Tensor, plan, values: torch.Tensor) -> None:
+    """``dst[slots[ok]] = values[ok]`` in place, by a :func:`_write_plan`."""
+    target, source, placed = plan
+    rows = values[source]
+    placed = placed.reshape((1,) * rows.dim())
+    dst.index_copy_(0, target, torch.where(placed, rows, dst[target]))
+
+
 def insert(state: IVFState, x: torch.Tensor, spill: int = 4, metric: str = "sql2") -> torch.Tensor:
     """Insert a batch of rows (f32, or bf16 from the half-width wire) into a
     state without a residual slab, in place (``zebra_tpu/index/ivf.py:266-340``).
@@ -261,21 +306,20 @@ def insert(state: IVFState, x: torch.Tensor, spill: int = 4, metric: str = "sql2
         raise ValueError("a residual-bearing state takes host-quantised rows (insert_quant)")
     x32 = x.float()
     slots, counts, dropped = _place_rows(state, x32, spill, metric)
-    ok = slots >= 0
-    w = slots[ok]
+    plan = _write_plan(slots)
     if state.vectors.dtype == torch.int8:
         absmax = x32.abs().amax(-1)
         scale = torch.where(absmax > 0, absmax * float(_INV127), torch.ones_like(absmax))
         xd = torch.clamp(torch.round(x32 / scale[:, None]), -127, 127).to(torch.int8)
         xs32 = xd.float() * scale[:, None]
-        state.scales.index_copy_(0, w, scale[ok])
+        _put_rows(state.scales, plan, scale)
     else:
         xd = x32.to(state.vectors.dtype)
         xs32 = xd.float()
     state.counts = counts
-    state.vectors.index_copy_(0, w, xd[ok])
-    state.norms.index_copy_(0, w, (xs32 * xs32).sum(-1)[ok])
-    state.valid[w] = True
+    _put_rows(state.vectors, plan, xd)
+    _put_rows(state.norms, plan, (xs32 * xs32).sum(-1))
+    _put_rows(state.valid, plan, torch.ones_like(slots, dtype=torch.bool))
     state.overflow += dropped
     return slots
 
@@ -292,15 +336,14 @@ def insert_quant(state: IVFState, v8: torch.Tensor, r8: torch.Tensor,
     scale, rscale = qscales[:, 0], qscales[:, 1]
     x32 = v8.float() * scale[:, None] + r8.float() * rscale[:, None]
     slots, counts, dropped = _place_rows(state, x32, spill, metric)
-    ok = slots >= 0
-    w = slots[ok]
+    plan = _write_plan(slots)
     state.counts = counts
-    state.vectors.index_copy_(0, w, v8[ok])
-    state.residual.index_copy_(0, w, r8[ok])
-    state.norms.index_copy_(0, w, (x32 * x32).sum(-1)[ok])
-    state.scales.index_copy_(0, w, scale[ok].contiguous())
-    state.rscales.index_copy_(0, w, rscale[ok].contiguous())
-    state.valid[w] = True
+    _put_rows(state.vectors, plan, v8)
+    _put_rows(state.residual, plan, r8)
+    _put_rows(state.norms, plan, (x32 * x32).sum(-1))
+    _put_rows(state.scales, plan, scale)
+    _put_rows(state.rscales, plan, rscale)
+    _put_rows(state.valid, plan, torch.ones_like(slots, dtype=torch.bool))
     state.overflow += dropped
     return slots
 

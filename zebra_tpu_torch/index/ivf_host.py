@@ -14,8 +14,13 @@ device query and the snapshot arrays. Every slab tier of the JAX package:
   int8 (``refine=0``) ship rows on the base's array wire (bf16, f32 and bf16
   respectively) and ``ivf.insert`` casts or quantises them on the device.
 
-The rebuild/compaction/retrain policy is not ported yet (ROADMAP.md queue 1,
-item 8).
+Inserts run through the base's pipeline: on the quantised wire each span is
+quantised on the host by the native kernel (``native/zebra_quant.cpp``, the
+numpy emulation where no toolchain built it), shipped through the pinned
+ring, logged while its copy is in flight, and inserted without a host sync
+(``ivf._write_plan``). The cold build stages an HBM-budgeted window of spans
+before it trains. The rebuild/compaction/retrain policy is not ported yet
+(ROADMAP.md queue 1, item 8).
 """
 
 from __future__ import annotations
@@ -27,16 +32,18 @@ import torch
 
 from zebra_tpu_torch.config import IndexOptions
 from zebra_tpu_torch.index import ivf as V
-from zebra_tpu_torch.index.base import BATCH, BaseVectorIndex
+from zebra_tpu_torch.index.base import BATCH, BaseVectorIndex, Staged
 from zebra_tpu_torch.ops import distances as D
 from zebra_tpu_torch.ops.kmeans import kmeans
+from zebra_tpu_torch.profiling import timed
 from zebra_tpu_torch.utils import next_pow2
 
 logger = logging.getLogger(__name__)
 
-#: device-memory budget of the capacity sizing (the JAX package's 16 GB-chip
-#: figure, kept so both packages size a database identically; it does not
-#: bind at 1M x 768)
+#: device-memory budget of the capacity sizing and of the cold build's
+#: prestage window (the JAX package's 16 GB-chip figure, kept so both
+#: packages size a database identically; at 1M x 768 it binds neither: the
+#: window holds every span)
 _STAGE_HBM_BUDGET = 12 << 30
 #: spare-growth retries per batch before giving up
 _MAX_GROWS = 8
@@ -176,81 +183,114 @@ class IVFIndex(BaseVectorIndex):
         )
 
     def _cold_build(self, vectors, ids) -> bool:
-        """Bulk first build: stage + log the leading spans, train k-means on
-        their leading rows (the JAX package's sample: the first ``per`` rows
-        of each of ``train_len`` spans, see :meth:`_staged_rows`), THEN
-        allocate the slab, then insert every span (the staged ones
-        unchanged)."""
+        """Bulk first build (``zebra_tpu/index/ivf_host.py:461-549``): stage
+        and log an HBM-budgeted window of the leading spans, train k-means on
+        the leading rows of the first ``train_len`` of them (the JAX
+        package's sample, see :meth:`_staged_rows`), THEN allocate the slab,
+        then insert every span (the staged ones unchanged, the rest staged
+        live by the pipeline)."""
         n = vectors.shape[0]
-        if n < 2 * BATCH:
+        if isinstance(vectors, torch.Tensor) or n < 2 * BATCH:
             return False
         spans = self._spans(n)
+        nb = len(spans)
         k = resolved_clusters(self.options, n)
+        cap = resolved_capacity(self.options, n, k, dim=self._dev_dim)
+        spare = resolved_spare(self.options, n)
+        # the window holds as many spans as fit beside the slab about to be
+        # allocated (every span at 1M x 768)
+        slots = k * cap + spare
+        slab_bytes = slots * self._dev_dim * self.dtype.itemsize
+        slab_bytes += slots * 9 + k * self._dev_dim * 4  # norms/valid/scales + centroids
+        if self._quant_wire:
+            slab_bytes += slots * (self._dev_dim + 4)  # residual + rscales
+        batch_bytes = next_pow2(max(spans[0][1], 1)) * self._wire_row_bytes
+        budget = max(_STAGE_HBM_BUDGET - slab_bytes, 2 * batch_bytes)
+        window = int(min(nb, max(budget // batch_bytes, 2)))
         target = max(self.options.kmeans_sample, 4 * k)
         need = -(-target // max(spans[0][1], 1))
-        train_len = max(min(4, len(spans)), min(len(spans), need))
+        train_len = max(min(4, window), min(window, need))
         per = max(min(target // train_len, spans[0][1]), 1)
-        staged = [self._stage_span(vectors, spans[i]) for i in range(train_len)]
-        sample = torch.cat([self._staged_rows(b, min(per, sp[1]))
-                            for b, sp in zip(staged, spans)])
-        cents = self._train_centroids(k, sample)
+        staged: list = [None] * nb
+        with timed("ivf.prestage", items=sum(spans[i][1] for i in range(window))):
+            for i in range(window):
+                staged[i] = self._stage_span(vectors, spans[i])
+        sample = torch.cat([self._staged_rows(staged[i], min(per, spans[i][1]))
+                            for i in range(train_len)])
+        with timed("ivf.train", items=int(sample.shape[0])):
+            cents = self._train_centroids(k, sample)
+            if cents.is_cuda:
+                torch.cuda.current_stream(self.device).synchronize()
         del sample
-        self.state = V.empty_state(
-            cents, resolved_capacity(self.options, n, k, dim=self._dev_dim),
-            resolved_spare(self.options, n), dtype=self.dtype,
-            refine=self.options.refine_enabled(),
-        )
-        self._insert_batches(vectors, ids, staged=staged)
+        self.state = V.empty_state(cents, cap, spare, dtype=self.dtype,
+                                   refine=self.options.refine_enabled())
+        with timed("ivf.insert_batches", items=n):
+            self._insert_batches(vectors, ids, prestaged=staged)
         return True
 
     # -- insert ---------------------------------------------------------------------
 
-    @staticmethod
-    def _staged_rows(staged, rows: int) -> torch.Tensor:
+    def _staged_rows(self, staged: Staged, rows: int) -> torch.Tensor:
         """The leading ``rows`` of one staged span as k-means sample rows: the
         array wire's rows as shipped (bf16 or f32), or the quantised wire's
         coarse reconstruction rounded to bf16 (int8 -> bf16 casts are exact;
         the product rounds)."""
-        if isinstance(staged, tuple):
-            v8, _r8, qs = staged
+        parts = self._ready(staged)
+        if isinstance(parts, tuple):
+            v8, _r8, qs = parts
             return v8[:rows].to(torch.bfloat16) * qs[:rows, 0, None].to(torch.bfloat16)
-        return staged[:rows]
+        return parts[:rows]
 
-    def _stage_span(self, vectors, span):
+    def _stage_span(self, vectors, span) -> Staged:
         """Quantised wire: quantise one span on the host (or slice the
-        caller's pre-quantised parts — WAL replay), write its q8 WAL record
-        (fsync'd before the insert runs), and ship ``(v8, r8, [scale,
-        rscale])`` to the device. The other tiers take the base's array
-        wire."""
-        if not self._quant_wire:
+        caller's pre-quantised parts — WAL replay), ship ``(v8, r8, [scale,
+        rscale])`` through the pinned ring, and write its q8 WAL record while
+        the copy is in flight (fsync'd before the span's insert is
+        dispatched). The other tiers take the base's array wire."""
+        if not self._quant_wire or isinstance(vectors, torch.Tensor):
             return super()._stage_span(vectors, span)
         start, count = span
         if self._prequant is not None:
             parts = tuple(p[start : start + count] for p in self._prequant)
         else:
-            parts = V.quantise_pair_host(np.asarray(vectors[start : start + count], np.float32))
+            with timed("insert.quant", items=count):
+                parts = V.quantise_pair_host(np.asarray(vectors[start : start + count], np.float32))
+        staged = self._ship_quant(parts, ring=True)
         if self._wal_cb is not None:
             self._wal_cb(span, parts)
-        return self._ship_quant(parts)
+        return staged
 
-    def _ship_quant(self, parts):
-        """Host-quantised ``(v8, r8, scale, rscale)`` as device tensors
-        ``(v8, r8, [scale, rscale])``, the codes zero-padded to the stored
-        width (the WAL record holds them unpadded)."""
+    def _ship_quant(self, parts, ring: bool = False) -> Staged:
+        """Host-quantised ``(v8, r8, scale, rscale)`` shipped as one buffer
+        and seen on the device as ``(v8, r8, [scale, rscale])``, the codes
+        zero-padded to the stored width (the WAL record holds them
+        unpadded)."""
         v8, r8, sc, rs = parts
-        qs = np.stack([sc, rs], axis=1).astype(np.float32)
-        pad = self._dev_dim - v8.shape[1]
-        if pad:
-            v8, r8 = (np.pad(a, ((0, 0), (0, pad))) for a in (v8, r8))
-        return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
-                     for a in (v8, r8, qs))
+        n, d = v8.shape
+        W = self._dev_dim
 
-    def _insert_batch_dev(self, batch) -> np.ndarray:
+        def fill(views):
+            v, r, qs = views
+            for dst, src in ((v, v8), (r, r8)):
+                dst[:, :d].copy_(torch.from_numpy(np.ascontiguousarray(src)))
+                if W > d:
+                    dst[:, d:].zero_()
+            qs[:, 0].copy_(torch.from_numpy(np.ascontiguousarray(sc, np.float32)))
+            qs[:, 1].copy_(torch.from_numpy(np.ascontiguousarray(rs, np.float32)))
+
+        return self._ship([((n, W), torch.int8), ((n, W), torch.int8),
+                           ((n, 2), torch.float32)], fill, ring)
+
+    def _insert_batch_dev(self, staged: Staged) -> torch.Tensor:
+        """One device insert, queued on the current stream after the span's
+        copy; returns the slots as a device tensor (the pipeline reads them
+        back two spans behind)."""
+        batch = self._ready(staged)
         # cells are chosen with the query's probe metric (the two must agree)
         kw = dict(spill=self.options.spill, metric=self.metric)
         if isinstance(batch, tuple):  # the quantised wire
-            return V.insert_quant(self.state, *batch, **kw).cpu().numpy()
-        return V.insert(self.state, batch, **kw).cpu().numpy()
+            return V.insert_quant(self.state, *batch, **kw)
+        return V.insert(self.state, batch, **kw)
 
     def _retry_batch(self, rows: np.ndarray):
         """Rows of a spare-growth retry, as the JAX package stages them
@@ -272,7 +312,7 @@ class IVFIndex(BaseVectorIndex):
             logger.info("ivf: %d vectors overflow into a grown spare (%d -> %d rows)",
                         len(pending), self.state.spare_capacity, 2 * self.state.spare_capacity)
             self.state = V.grow_spare(self.state)
-            slots = self._insert_batch_dev(self._retry_batch(rows[pending]))
+            slots = self._insert_batch_dev(self._retry_batch(rows[pending])).cpu().numpy()
             out[pending] = slots
             pending = pending[slots < 0]
             if not len(pending):
@@ -299,7 +339,7 @@ class IVFIndex(BaseVectorIndex):
         """Device search. ``exact`` scans the whole slab (always full f32:
         ``exact_precision`` and ``approx_topk`` only ever trade accuracy away
         on the JAX package)."""
-        if self._dev_dim != self.dim:
+        if q.shape[1] != self._dev_dim:
             q = torch.nn.functional.pad(q, (0, self._dev_dim - self.dim))
         if exact:
             return V.brute_force(self.state, q, k, metric=self.metric)
@@ -309,6 +349,21 @@ class IVFIndex(BaseVectorIndex):
             probe_sel=self.options.probe_sel, refine_k=self.options.refine_k(k),
             refine_scan=self.options.refine_is_scan(), spare_used=self._spare_used > 0,
         )
+
+    def _take_rows(self, slots: np.ndarray) -> torch.Tensor:
+        """Stored values of slab rows (``zebra_tpu/index/ivf_host.py:869-885``):
+        refined int8 reconstructs in f32 (a bf16 copy would round its ~15-bit
+        values back to 8 bits), plain int8 dequantises in bf16, bf16 and f32
+        slabs give their rows."""
+        st = self.state
+        idx = torch.as_tensor(np.asarray(slots, np.int64), device=st.vectors.device)
+        rows = st.vectors[idx]
+        if st.residual is not None:
+            return (rows.float() * st.scales[idx][:, None]
+                    + st.residual[idx].float() * st.rscales[idx][:, None])
+        if st.scales is not None:
+            return rows.to(torch.bfloat16) * st.scales[idx][:, None].to(torch.bfloat16)
+        return rows
 
     # -- persistence ---------------------------------------------------------------------
 

@@ -24,9 +24,10 @@ import torch
 
 from zebra_tpu_torch.config import IndexOptions
 from zebra_tpu_torch.index import buckets as B
-from zebra_tpu_torch.index.base import _MIN_BATCH, BaseVectorIndex
+from zebra_tpu_torch.index.base import _MIN_BATCH, BaseVectorIndex, Staged
 from zebra_tpu_torch.ops import distances as D
 from zebra_tpu_torch.ops import hashing as H
+from zebra_tpu_torch.profiling import timed
 from zebra_tpu_torch.utils import next_pow2
 
 logger = logging.getLogger(__name__)
@@ -167,9 +168,14 @@ class LSHIndex(BaseVectorIndex):
             out[:cap] = t
             return out
 
-        st.vectors, st.norms, st.valid = grow(st.vectors), grow(st.norms), grow(st.valid)
+        with timed("insert.grow", items=need):
+            st.vectors, st.norms, st.valid = grow(st.vectors), grow(st.norms), grow(st.valid)
 
-    def _insert_batch_dev(self, batch) -> np.ndarray:
+    def _insert_batch_dev(self, staged: Staged) -> np.ndarray:
+        """One device insert after the span's copy. The slots are known on
+        the host (a bump allocator), so nothing is read back; the insert
+        itself reads its bucket-scatter width back (``buckets._append``)."""
+        batch = self._ready(staged)
         count = batch.shape[0]
         B.insert(self.state, batch, start=self._next_slot)
         # slots are next_slot .. next_slot+count-1 by construction
@@ -239,7 +245,7 @@ class LSHIndex(BaseVectorIndex):
     def _query_device(self, q: torch.Tensor, k: int, exact: bool):
         """Device search on queries padded to the stored width. ``exact``
         scans the whole slab in full f32."""
-        if self._dev_dim != self.dim:
+        if q.shape[1] != self._dev_dim:
             q = torch.nn.functional.pad(q, (0, self._dev_dim - self.dim))
         if exact:
             return B.brute_force(self.state, q, k, metric=self.metric)
