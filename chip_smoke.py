@@ -97,7 +97,32 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    index=IndexOptions(dtype="float32"))`` (f32 slab, P=4, f32 query wire)
    through the same facade calls and checks as phase 4 (the probe kernel's
    f32 forms; their launch count over the path), then, on the path's own
-   probes, as phase 4.
+   probes, as phase 4;
+12. the text document path: ``defaults.text_db`` (384 dimensions, sql2,
+   BGE-small-en-v1.5 at its published widths on the card, f32 with TF32
+   off; IVF at the library defaults) on 262,144 synthetic documents of 8-60
+   words from a 30,000-word vocabulary plus 4,096 held-out queries (one
+   seeded generator): ``model_status()``, the native store and the packed
+   backend; the card's tower against the CPU tower with the same weights on
+   256 documents (max abs difference <= 1e-4), one document bitwise equal
+   alone, at another row and in another batch size, the forward time of a
+   batch of 64 beside its f32 bound; ``insert_documents`` (durability
+   "full"; the stage table with ``insert.embed`` and ``insert.blobs``);
+   ``query_documents`` of the held-out queries in batches of 1024 (the rate
+   with ``query.embed`` split out, every document equal to the inserted
+   bytes of its id, the blob reads timed alone); self-retrieval of 1024
+   documents, ``remove`` of 1000 (never returned, their blobs gone),
+   ``deduplicate`` of 1000 copies planted by a later insert (exactly those
+   removed); ``save``, ``close`` and reopen (same top-10 and blobs);
+   ``db.query`` at batch 16384 (kernel 1's launch count by form: both forms
+   present); the CLI (``python -m zebra_tpu_torch.cli`` text insert, query,
+   stats, clear in subprocesses) and the verify skill's ``hash-64`` drive;
+   then the facade's top-10 of every held-out query against kernel 1's
+   plain version on the same index and probes (differing ranks f64-verified
+   ties), recall@10 against the exact scan at P=2, 4 and 8 (printed, no
+   guard: random-init text embeddings are crowded), and, on the path's own
+   probes at B=1024 and 16384, both forms of kernel 1 against the plain
+   version and in turns beside the bound, as phase 4. Nothing is cut.
 
 Every IVF path must launch the cluster-major form (its batch-16384
 queries take it by ``ivf_cluster.takes_cluster_form``). Phases 3, 9 and 11
@@ -107,8 +132,10 @@ A kernel's ``bound_ms`` is the larger of its distinct bytes (every input
 byte once, every output byte once) over 3.35 TB/s and its operations over
 the card's peak rate for their type, both counted from the timed inputs.
 A line ``pipeline: {...}`` holds each path's insert stage table, stream
-QPS, submit timeline and dedup time. The second-to-last line is the
-kernels' JSON record (every kernel carries its ``forms``), the last line
+QPS, submit timeline and dedup time (and the text path's stage table,
+rates, forward time and recall). The second-to-last line is the kernels'
+JSON record (every kernel carries its ``forms``; kernel 1 has a second
+entry for the text path at D=384, sql2), the last line
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
 
@@ -156,6 +183,17 @@ MUTATE_REMOVE_ROWS = slice(5000, 5010)
 DUP_ROWS = slice(200_000, 201_000)
 #: times the stream phases send the held-out batch of 16384
 STREAM_REPEATS = 4
+#: phase 12: synthetic documents, held-out queries, the vocabulary they are
+#: drawn from and their length in words
+TEXT_DOCS = 262_144
+TEXT_QUERIES = 4_096
+TEXT_VOCAB = 30_000
+TEXT_WORDS = (8, 60)
+#: the card's tower against the CPU tower with the same weights (unit vectors)
+TEXT_TOWER_ATOL = 1e-4
+#: documents phase 12 removes, and those it inserts again as exact copies
+TEXT_REMOVE = slice(1000, 2000)
+TEXT_DUP_ROWS = slice(5000, 6000)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -1307,7 +1345,7 @@ def lsh_path(torch, zt, TB, LR, tmp, base, queries):
     hits = db.query(base[pick], 1)
     missed = [int(i) for h, i in zip(hits, pick) if not h or h[0][0] != ids[i]]
     self_rate = 1.0 - len(missed) / len(pick)
-    held = [int((idx.state.buckets == idx._id_to_slot._dict[ids[i]]).any(-1).any(-1).sum())
+    held = [int((idx.state.buckets == idx._id_to_slot.get(ids[i])).any(-1).any(-1).sum())
             for i in missed]
     print(f"lsh self-retrieval: {self_rate:.4f} over 256 inserted rows; overflow "
           f"{st['overflow']} bucket entries displaced; the missed rows sit in "
@@ -1636,6 +1674,318 @@ def aug_path(torch, V, TX, IC, device, K=16384, C=128, D=DIM, P=4, B=1024, B_tim
     return launches, driven, forms
 
 
+def make_documents(n: int, seed: int) -> list[bytes]:
+    """``n`` synthetic texts of TEXT_WORDS words each, drawn from a
+    TEXT_VOCAB-word synthetic vocabulary (words of 2-10 lowercase letters),
+    from one seeded numpy generator."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    letters = np.frombuffer(b"abcdefghijklmnopqrstuvwxyz", np.uint8)
+    lens = rng.integers(2, 11, TEXT_VOCAB)
+    chars = letters[rng.integers(0, 26, int(lens.sum()))].tobytes()
+    ends = np.cumsum(lens)
+    vocab = np.array([chars[e - n_ : e] for n_, e in zip(lens, ends)], dtype=object)
+    counts = rng.integers(TEXT_WORDS[0], TEXT_WORDS[1] + 1, n)
+    words = vocab[rng.integers(0, TEXT_VOCAB, int(counts.sum()))]
+    ends = np.cumsum(counts)
+    return [b" ".join(words[e - c : e]) for c, e in zip(counts, ends)]
+
+
+def tower_flops(enc, length: int) -> float:
+    """Operations of one document through the encoder at ``length`` tokens:
+    per layer and token the q/k/v/out and FFN products (2 * in * out each)
+    and the attention's two products over ``length`` keys."""
+    h, f = enc.tok_embed.weight.shape[1], enc.layers[0].fc1.weight.shape[0]
+    per_token = 8 * h * h + 4 * h * f + 4 * length * h
+    return float(len(enc.layers) * length * per_token)
+
+
+def cli_drive(tmp):
+    """``python -m zebra_tpu_torch.cli`` in subprocesses on the card: text
+    insert, query, stats and clear on a small database, checked as the JAX
+    package's ``tests/test_cli.py`` checks its CLI."""
+    env = {**os.environ, "PYTHONPATH": os.path.dirname(os.path.abspath(__file__))}
+    db = os.path.join(tmp, "cli.zebra")
+
+    def run(*argv):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "zebra_tpu_torch.cli", "--database-path",
+                               db, "text", *argv], cwd=tmp, env=env, capture_output=True,
+                              text=True, timeout=300)
+        check(proc.returncode == 0, f"cli text {argv[0]} exited {proc.returncode}: "
+              f"{proc.stderr[-2000:]}")
+        return proc.stdout, time.perf_counter() - t0
+
+    out, t_ins = run("insert", "apple pie recipe", "rocket science")
+    check("Inserted 2" in out and "384-dimensional" in out, f"cli insert printed {out!r}")
+    out, t_q = run("query", "apple pie recipe", "-n", "1")
+    check("apple pie recipe" in out and "rocket science" not in out, f"cli query printed {out!r}")
+    out, t_st = run("stats")
+    info = json.loads(out)
+    check(info["records"] == 2 and info["config"]["dim"] == 384 and info["index"]["built"],
+          f"cli stats printed {out!r}")
+    out, t_cl = run("clear")
+    check(not os.path.exists(db) and not os.path.exists(db + ".d"), "cli clear left files")
+    print(f"text cli: python -m zebra_tpu_torch.cli text insert / query / stats / clear "
+          f"passed ({t_ins:.1f} / {t_q:.1f} / {t_st:.1f} / {t_cl:.1f} s a process, host clock)")
+
+
+def canonical_drive(zt, tmp):
+    """The verify skill's ``hash-64`` library drive, on the card."""
+    path = os.path.join(tmp, "demo.zebra")
+    cfg = zt.DatabaseConfig(dim=64, metric="cosine", model="hash-64")
+    db = zt.Database.open_or_create(path, cfg)
+    ids = db.insert_documents([b"doc one", b"doc two"])
+    res = db.query_documents([b"doc one"], number_of_results=3)
+    rows = db.query(db.model.embed_documents([b"doc one"]), 1, with_documents=True)
+    db.remove([ids[0]])
+    db.deduplicate()
+    again = zt.Database.open(path)
+    kept = again.query_documents([b"doc two"], 1)
+    again.clear_database()
+    ok = (res[0].get(ids[0]) == b"doc one" and rows[0][0][0] == ids[0]
+          and abs(rows[0][0][1]) < 1e-5 and rows[0][0][2] == b"doc one" and len(again) == 0
+          and kept == {0: {ids[1]: b"doc two"}} and not os.path.exists(path))
+    print(f"canonical drive (hash-64, the verify skill's): insert, query_documents, "
+          f"query(with_documents=True), remove, deduplicate, reopen, clear_database: "
+          f"{'passed' if ok else 'FAILED'}")
+    check(ok, "the canonical hash-64 drive failed on the card")
+
+
+def text_path(torch, zt, V, R, IC, tmp):
+    """Phase 12: the text document path at ``defaults.text_db`` (384
+    dimensions, sql2, BGE-small at full width; IVF at the library defaults).
+    Returns kernel 1's JSON entry for this path and the phase's record."""
+    import numpy as np
+    from zebra_tpu_torch import native
+    from zebra_tpu_torch import profiling as P
+    from zebra_tpu_torch.models import text as MT
+
+    t0 = time.perf_counter()
+    docs = make_documents(TEXT_DOCS + TEXT_QUERIES, SEED)
+    docs, held = docs[:TEXT_DOCS], docs[TEXT_DOCS:]
+    n_words = sum(d.count(b" ") + 1 for d in docs) / len(docs)
+    print(f"text data: {TEXT_DOCS} documents + {TEXT_QUERIES} held-out queries, "
+          f"{TEXT_WORDS[0]}-{TEXT_WORDS[1]} words from a {TEXT_VOCAB}-word vocabulary (seed "
+          f"{SEED}; mean {n_words:.1f} words) in {time.perf_counter() - t0:.2f} s")
+
+    # status and stores
+    path = os.path.join(tmp, "text.zebra")
+    R.LAUNCHES = 0
+    R.LAUNCHES_BY_FORM.clear()
+    V.EAGER_LARGE_K = 0
+    P.GLOBAL_STATS.ops.clear()
+    quant_before = dict(V.QUANT_CALLS)
+    db = zt.text_db(path)
+    status = db.model_status()
+    with open(path) as f:
+        manifest = json.load(f)
+    print(f"text model_status: {json.dumps(status)}")
+    print(f"text stores: native store library loaded: {native.available()}; blob backend "
+          f"{manifest['blob_backend']} ({db._docs.codec}); metric {db.config.metric}, "
+          f"dim {db.config.dim}, durability {db.config.durability}")
+    check(native.available() and manifest["blob_backend"] == "packed"
+          and db._docs.codec == "packed-zlib", "the text path must use the native packed store")
+    check(db.config.dim == 384 and db.config.metric == "sql2"
+          and status["model"] == "bge-small-en-v1.5", "defaults.text_db changed")
+
+    # the tower: card against CPU, batch invariance, forward time
+    model = db.model
+    enc = model.encoder()
+    cpu = MT.BGESmallEn15(device="cpu")
+    same_weights = all(torch.equal(a.cpu(), b) for a, b in zip(
+        enc.state_dict().values(), cpu.encoder().state_dict().values()))
+    t0 = time.perf_counter()
+    host = cpu.embed_documents(docs[:256])
+    cpu_s = time.perf_counter() - t0
+    card = model.embed_documents(docs[:256])
+    tower_err = float(np.abs(card - host).max())
+    print(f"text tower: {len(enc.layers)} layers, hidden {enc.tok_embed.weight.shape[1]}, "
+          f"FFN {enc.layers[0].fc1.weight.shape[0]}, vocabulary {enc.tok_embed.weight.shape[0]}, "
+          f"batch {model.batch_size} x {MT.SEQ_LEN} tokens; same weights as the CPU tower: "
+          f"{same_weights}; card vs CPU on 256 documents: max abs err {tower_err:.3g} "
+          f"(<= {TEXT_TOWER_ATOL}; the CPU tower took {cpu_s:.2f} s)")
+    check(same_weights and tower_err <= TEXT_TOWER_ATOL, "the card's tower differs from the CPU's")
+    d = docs[777]
+    alone = model.embed_documents([d])[0]
+    in_100 = model.embed_documents(docs[700:800])[77]
+    in_38 = model.embed_documents(docs[740:778])[37]
+    bitwise = all(np.array_equal(alone.view(np.uint32), v.view(np.uint32)) for v in (in_100, in_38))
+    print(f"text tower: one document alone, at row 77 of 100 and at row 37 of 38 gives "
+          f"bitwise the same vector: {bitwise}")
+    check(bitwise, "the tower's vector depends on the batch")
+    ids_h, attn_h = model.tokenize_padded([t.decode() for t in docs[:model.batch_size]])
+    ids_d = torch.from_numpy(ids_h).to(model.device)
+    attn_d = torch.from_numpy(attn_h).to(model.device)
+    with torch.inference_mode():
+        fwd_ms = time_ms(torch, lambda: enc(ids_d, attn_d), 20)
+    flops = model.batch_size * tower_flops(enc, MT.SEQ_LEN)
+    fwd_bound = flops / PEAK_F32 * 1e3
+    print(f"text tower forward, batch of {model.batch_size} (CUDA events, f32, TF32 off): "
+          f"{fwd_ms:.3f} ms; {flops / 1e9:.1f} GFLOP, f32 bound {fwd_bound:.3f} ms "
+          f"({flops / fwd_ms / 1e9:.1f} TFLOP/s, {fwd_bound / fwd_ms:.3f} of the bound)")
+
+    # insert
+    t0 = time.perf_counter()
+    ids = db.insert_documents(docs)
+    insert_s = time.perf_counter() - t0
+    st = db.index.stats()
+    stages = db.stats.summary()
+    embed_s = stages["insert.embed"]["seconds"]
+    print(f"text insert: {TEXT_DOCS} documents in {insert_s:.2f} s = {TEXT_DOCS / insert_s:.0f} "
+          f"documents/s, of which insert.embed {embed_s:.2f} s = {TEXT_DOCS / embed_s:.0f} "
+          f"documents/s (host clock); clusters={st['clusters']}, C={st['cluster_capacity']}, "
+          f"spare_used={st['spare_used']}, max load={st['max_cluster_load']}, "
+          f"overflow={st['overflow']}")
+    check(len(db) == TEXT_DOCS and st["overflow"] == 0, "documents lost on insert")
+    check({"insert.embed", "insert.blobs", "insert.wal", "insert.index"} <= set(stages),
+          "the insert stage table lacks a stage")
+    insert_stages(db, "text ", quant_before)
+    rec = {"insert_s": insert_s, "stages": stages | P.GLOBAL_STATS.summary(),
+           "forward_ms": fwd_ms, "forward_bound_ms": fwd_bound, "tower_err": tower_err}
+    doc_of = dict(zip(ids, docs))
+
+    # query_documents of the held-out queries
+    q_before = stages.get("query.embed", {}).get("seconds", 0.0)
+    t0 = time.perf_counter()
+    found = {}
+    for s in range(0, TEXT_QUERIES, 1024):
+        found.update({s + q: v for q, v in db.query_documents(held[s : s + 1024], 10).items()})
+    qs = time.perf_counter() - t0
+    q_embed = db.stats.summary()["query.embed"]["seconds"] - q_before
+    print(f"text query_documents: {TEXT_QUERIES} queries in batches of 1024, k=10: "
+          f"{TEXT_QUERIES / qs:.0f} QPS, of which query.embed {q_embed:.2f} s of {qs:.2f} s "
+          f"(host clock); without the embedding {TEXT_QUERIES / (qs - q_embed):.0f} QPS")
+    check(len(found) == TEXT_QUERIES and all(len(v) == 10 for v in found.values()),
+          "every held-out query must return 10 documents")
+    check(all(doc_of[i] == doc for v in found.values() for i, doc in v.items()),
+          "a returned document differs from the inserted bytes of its id")
+    returned = [i for v in found.values() for i in v]
+    t0 = time.perf_counter()
+    db._docs.read_many(returned)
+    blob_s = time.perf_counter() - t0
+    print(f"text blob reads alone: the {len(returned)} returned documents in {blob_s:.2f} s "
+          f"({len(returned) / blob_s:.0f} a second, host clock)")
+    rec.update(query_qps=TEXT_QUERIES / qs, query_embed_s=q_embed, query_s=qs, blob_read_s=blob_s)
+
+    # self-retrieval, remove, deduplicate
+    pick = np.linspace(0, TEXT_DOCS - 1, 1024).astype(np.int64)
+    hits = db.query_documents([docs[i] for i in pick], number_of_results=1)
+    self_rate = float(np.mean([hits[q] == {ids[i]: docs[i]} for q, i in enumerate(pick)]))
+    print(f"text self-retrieval: {self_rate:.4f} over 1024 inserted documents (own id and "
+          f"own bytes at number_of_results=1)")
+    check(self_rate == 1.0, "an inserted document did not retrieve itself")
+    gone = ids[TEXT_REMOVE]
+    db.remove(gone)
+    back = {i for v in db.query_documents(docs[TEXT_REMOVE], 10).values() for i in v} & set(gone)
+    blobs_left = db._docs.read_many(gone)
+    print(f"text remove: {len(gone)} ids removed; returned again: {len(back)}; blobs left: "
+          f"{len(blobs_left)}")
+    check(not back and not blobs_left and len(db) == TEXT_DOCS - len(gone),
+          "a removed id came back or kept its blob")
+    copies = db.insert_documents(docs[TEXT_DUP_ROWS])
+    n = len(db)
+    t0 = time.perf_counter()
+    db.deduplicate()
+    dedup_s = time.perf_counter() - t0
+    removed = n - len(db)
+    left = sum(i in db.index for i in copies)
+    print(f"text deduplicate: {removed} ids removed of {len(copies)} planted copies ({left} "
+          f"left; their blobs left: {len(db._docs.read_many(copies))}) in {dedup_s:.3f} s")
+    check(removed == len(copies) and left == 0 and not db._docs.read_many(copies)
+          and all(i in db.index for i in ids[TEXT_DUP_ROWS]),
+          "deduplicate did not remove exactly the planted copies")
+
+    # durability: save, close, reopen
+    probe = held[:1024]
+    want = db.query_documents(probe, 10)
+    db.save()
+    db.close()
+    del db
+    db = zt.Database.open(path)
+    got = db.query_documents(probe, 10)
+    print(f"text save, close, reopen: same top-10 and blobs for 1024 held-out queries: "
+          f"{got == want}; live documents {len(db)}")
+    check(got == want and len(db) == TEXT_DOCS - len(gone), "the reopened database differs")
+
+    # a large batch: kernel 1's cluster-major form at D=384
+    bigv = db.model.embed_documents(docs[:N_QUERIES])
+    db.query(bigv, 10)  # warm
+    t0 = time.perf_counter()
+    big_rows = db.query(bigv, 10)
+    big_qps = N_QUERIES / (time.perf_counter() - t0)
+    live = [q for q in range(N_QUERIES) if not TEXT_REMOVE.start <= q < TEXT_REMOVE.stop]
+    big_self = float(np.mean([big_rows[q][0][0] == ids[q] for q in live]))
+    launches, by_form = R.LAUNCHES, dict(R.LAUNCHES_BY_FORM)
+    print(f"text db.query at batch {N_QUERIES}: {big_qps:.0f} QPS (results formatted); "
+          f"self at rank 1 for {big_self:.4f} of the live rows; launches over the path: "
+          f"ivf_rerank {launches} {by_form}; eager fallbacks {V.EAGER_LARGE_K}")
+    check(by_form.get("int8+residual/query", 0) > 0 and by_form.get("int8+residual/cluster", 0) > 0
+          and sum(by_form.values()) == launches and V.EAGER_LARGE_K == 0,
+          "the text path must launch both forms of kernel 1")
+    rec.update(big_qps=big_qps, dedup_s=dedup_s, launches=by_form)
+
+    # the CLI and the canonical drive
+    cli_drive(tmp)
+    canonical_drive(zt, tmp)
+
+    # kernel 1 against its plain version on the path's own index
+    idx = db.index
+    st, metric, probes_n = idx.state, idx.metric, idx.options.resolved_probes()
+    qv = db.model.embed_documents(held)  # bitwise the vectors query_documents searched
+    qt = torch.from_numpy(qv).to(idx.device)
+    arrays = idx.search_arrays(qv, 10)
+    facade = (torch.from_numpy(arrays[0]).to(idx.device),
+              torch.from_numpy(arrays[1]).to(idx.device).long(),
+              torch.from_numpy(arrays[2]).to(idx.device))
+    probes = V.select_probes(st, qt, probes_n, metric, idx.options.probe_sel)
+    plain = R.ivf_rerank_reference(st, qt, probes, 10, metric, scan_residual=True)
+    if idx._spare_used > 0:
+        plain = V._merge_spare(st, qt, *plain, 10, metric, True)
+    agree, err, swaps, gap = hold(torch, facade, plain, slab_d64(torch, st, qt, metric, True),
+                                  min_agree=0.0)
+    rows = idx._format_results(*arrays)
+    same_ids = all({i for i, _ in row} == set(v) for row, v in zip(
+        rows, db.query_vectors(qv, 10).values()))
+    print(f"text parity: the facade's top-10 of the {TEXT_QUERIES} held-out queries against "
+          f"kernel 1's plain version on the same index and probes (P={probes_n}, sql2, D=384): "
+          f"slot agreement {agree:.6f}, max abs err {err:.3g}; {swaps} differing ranks, all "
+          f"ties (largest f64 gap {gap:.3g} <= {TIE_TOL}); query_vectors returns these ids: "
+          f"{same_ids}")
+    check(same_ids, "query_vectors' ids differ from the facade's top-10")
+    _, exact, _ = V.brute_force(st, qt, 10, metric=metric)
+    exact = exact.cpu().numpy()
+    recalls = {}
+    for p in (probes_n, 4, 8):
+        pr = V.select_probes(st, qt, p, metric, idx.options.probe_sel)
+        found_p = R.ivf_rerank(st, qt, pr, 10, metric, True)[1].cpu().numpy()
+        recalls[p] = float(np.mean([len(set(a) & set(b)) / 10 for a, b in zip(found_p, exact)]))
+    facade_recall = float(np.mean([len(set(a) & set(b)) / 10
+                                   for a, b in zip(arrays[1], exact)]))
+    print(f"text recall@10 over the {TEXT_QUERIES} held-out queries (vs the exact scan of the "
+          f"stored int8 + residual reconstruction): query {facade_recall:.4f}; kernel 1 at "
+          + ", ".join(f"P={p} {r:.4f}" for p, r in recalls.items())
+          + " (no guard: random-init text embeddings are crowded)")
+    rec.update(recall=facade_recall, recall_by_probes=recalls)
+    path_recs = probe_path_stages(torch, V, R, IC, db, bigv, True, "text ")
+    main_form = max(by_form, key=by_form.get).split("/")[1]
+    r = path_recs[f"int8+residual/{main_form}"]
+    source = {"query": "zebra_tpu_torch/csrc/ivf_rerank.cu",
+              "cluster": "zebra_tpu_torch/csrc/ivf_rerank_cluster.cu"}
+    entry = {"name": "ivf_rerank", "path": "text documents (D=384, sql2, P=2, k=10)",
+             "route": "cuda", "source": source[main_form],
+             "replaces": "zebra_tpu/ops/pallas_ivf.py:72", "launches": launches,
+             "max_abs_err": max(err, *(x["max_abs_err"] for x in path_recs.values())),
+             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+             "bound_by": r["bound_by"], "library_ms": None,
+             "forms": {k: {"source": source[k.split("/")[1]], "launches": by_form.get(k, 0), **v}
+                       for k, v in path_recs.items()}}
+    del db
+    torch.cuda.empty_cache()
+    return entry, rec
+
+
 def kernels_record(forms, path_forms, ivf_total, lsh_run, lsh_rec, wave_forms, path_recs,
                    wave_by_form, wave_launches, aug_launches, aug_by_form, aug_forms):
     """The kernels' JSON record: one entry per TPU kernel, each with its
@@ -1863,18 +2213,28 @@ def main() -> int:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     del data, base, queries
+
+    # phase 12: the text document path (defaults.text_db, BGE-small on the card)
+    tmp = tempfile.mkdtemp(prefix="zebra_smoke_text_")
+    try:
+        text_entry, pipe_recs["text"] = text_path(torch, zt, V, R, IC, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     print(f"launches: ivf_rerank {launches} {scan_forms} (defaults), {bal_launches} "
           f"{bal_forms} (balanced) and {f32_launches} {f32_forms} (f32), lsh_rerank "
           f"{lsh_run['launches']} (slab-major form {lsh_run['launches_slab']}), "
           f"ivf_rerank_wave {wave_launches} {wave_by_form}, ivf_rerank_aug {aug_launches} "
-          f"{aug_by_form} over their paths; the whole run took "
+          f"{aug_by_form}, ivf_rerank {text_entry['launches']} {pipe_recs['text']['launches']} "
+          f"(text documents) over their paths; the whole run took "
           f"{time.perf_counter() - t_start:.0f} s after the card check")
 
     print("pipeline: " + json.dumps(pipe_recs | {"lsh": lsh_run["pipeline"]}))
-    print(json.dumps(kernels_record(
+    record = kernels_record(
         forms, (scan_forms, bal_forms, f32_forms), launches + bal_launches + f32_launches,
         lsh_run, lsh_rec, wave_forms, path_recs, wave_by_form, wave_launches, aug_launches,
-        aug_by_form, aug_forms)))
+        aug_by_form, aug_forms)
+    record["kernels"].append(text_entry)
+    print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

@@ -3,8 +3,9 @@ re-rank in its int8 + residual, plain int8, bf16 and f32 slab forms, LSH
 candidate re-rank in its gather and slab-major forms, one-slab wave re-rank,
 augmented-slab re-rank, and the cluster-major form of the three IVF
 re-ranks: int8, bf16 and f32 slabs, augmented bf16 and f32 slabs)
-against their plain versions, and the facade's paths through them, with no
-device given (the card is the default).
+against their plain versions, the facade's paths through them, and the
+BGE-small text tower against the CPU tower, with no device given (the card
+is the default).
 
 Imports neither JAX nor the JAX package, so it runs where only torch is
 installed. Every test needs a card and skips without one; on the card:
@@ -772,7 +773,7 @@ def test_pipelined_insert_equals_span_per_call_on_the_card(cuda, tier, monkeypat
                  "rscales"):
         a, b = getattr(one.state, name), getattr(per.state, name)
         assert (a is None) == (b is None) and (a is None or torch.equal(a, b)), name
-    assert all(one._id_to_slot._dict[i] == per._id_to_slot._dict[i] for i in ids[4000:])
+    assert all(one._id_to_slot.get(i) == per._id_to_slot.get(i) for i in ids[4000:])
     assert one._spare_used == per._spare_used
 
 
@@ -812,3 +813,24 @@ def test_ivf_submit_and_insert_do_not_sync(cuda):
     assert slots.is_cuda and bool((slots >= 0).all())
     got = idx.search_collect(tok)
     assert np.array_equal(got[1], want[1])
+
+
+def test_text_tower_on_the_card_matches_the_cpu_tower(cuda, tmp_path):
+    """BGE-small at full width on the card (no device given) against the CPU
+    tower with the same weights, within 1e-4 on the unit vectors; the same
+    document at two batch positions and in two batch sizes gives bitwise the
+    same vector; a document database answers through it."""
+    from zebra_tpu_torch.models import text as MT
+
+    card, host = MT.BGESmallEn15(), MT.BGESmallEn15(device="cpu")
+    assert card.device.type == "cuda"
+    rng = np.random.default_rng(0)
+    words = [f"w{i}" for i in range(3000)]
+    docs = [" ".join(rng.choice(words, int(rng.integers(8, 61)))).encode() for i in range(130)]
+    got, want = card.embed_documents(docs), host.embed_documents(docs)
+    assert float(np.abs(got - want).max()) <= 1e-4
+    for v in (card.embed_documents(docs[70:71])[0], card.embed_documents(docs[40:100])[30]):
+        assert np.array_equal(v.view(np.uint32), got[70].view(np.uint32))
+    db = T.defaults.text_db(str(tmp_path / "t.zebra"))
+    ids = db.insert_documents(docs)
+    assert db.query_documents(docs[:8], 1) == {q: {ids[q]: docs[q]} for q in range(8)}

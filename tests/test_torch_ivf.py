@@ -563,7 +563,7 @@ def test_spare_growth_retry_matches_jax(rng, monkeypatch, tier):
     assert (st.spare_capacity, int(st.overflow), len(tix)) == (64 + 1024, 16, 208)
     assert (jix.state.spare_capacity, int(jix.state.overflow)) == (64 + 1024, 16)
     assert_state_equal(st, jix.state)
-    assert all(tix._id_to_slot._dict[i] == jix._id_to_slot.get(i) for i in ids)
+    assert all(tix._id_to_slot.get(i) == jix._id_to_slot.get(i) for i in ids)
 
 
 def test_ivfindex_rejects_what_jax_rejects():

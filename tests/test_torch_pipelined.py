@@ -200,7 +200,8 @@ def test_multi_span_insert_equals_one_span_per_call(rng, tier):
     assert a.keys() == b.keys()
     for name in a:
         assert torch.equal(a[name], b[name]), name
-    assert one._id_to_slot._dict == per._id_to_slot._dict
+    assert len(one._id_to_slot) == len(per._id_to_slot) == len(ids)
+    assert all(one._id_to_slot.get(i) == per._id_to_slot.get(i) for i in ids)
     assert (one._used_slots, one._spare_used) == (per._used_slots, per._spare_used)
 
 
@@ -234,7 +235,7 @@ def test_pipelined_spare_growth_matches_jax(rng, monkeypatch, tier):
             np.testing.assert_allclose(t.numpy(), j, rtol=1e-6)
         else:
             np.testing.assert_array_equal(t.numpy(), j, err_msg=name)
-    assert all(tix._id_to_slot._dict[i] == jix._id_to_slot.get(i) for i in ids)
+    assert all(tix._id_to_slot.get(i) == jix._id_to_slot.get(i) for i in ids)
 
 
 def test_insert_timers_and_wal_order(tmp_path, rng, monkeypatch):

@@ -182,23 +182,42 @@ class SlotIdArena:
 
 
 class IdSlotMap:
-    """id (16 bytes) -> slot (the JAX package's dict path; its native C++
-    table is not ported)."""
+    """id (16 bytes) -> slot, backed by the native C++ open-addressing table
+    when it builds (24 B an entry, bulk puts; ``native/zebra_store.cpp``),
+    with a plain dict otherwise, as in the JAX package. Iteration is not
+    offered: the live set is always recoverable from ``_slot_ids``."""
 
     def __init__(self):
-        self._dict: dict[bytes, int] = {}
+        from zebra_tpu_torch import native
+
+        self._native = native.NativeIdMap(4096) if native.available() else None
+        self._dict: dict[bytes, int] | None = None if self._native is not None else {}
 
     def __len__(self) -> int:
-        return len(self._dict)
+        return len(self._native) if self._native is not None else len(self._dict)
 
     def __contains__(self, key: bytes) -> bool:
-        return key in self._dict
+        return self.get(key) is not None
+
+    def get(self, key: bytes):
+        if self._native is not None:
+            return self._native.get(bytes(key))
+        return self._dict.get(key)
 
     def put_many(self, ids: list[bytes], slots) -> None:
-        self._dict.update(zip(ids, np.asarray(slots).tolist()))
+        if self._native is not None:
+            self._native.put_many(b"".join(ids), np.asarray(slots))
+        else:
+            self._dict.update(zip(ids, np.asarray(slots).tolist()))
 
     def pop(self, key: bytes, default=None):
-        return self._dict.pop(key, default)
+        if self._native is None:
+            return self._dict.pop(key, default)
+        v = self._native.get(bytes(key))
+        if v is None:
+            return default
+        self._native.delete(bytes(key))
+        return v
 
 
 class BaseVectorIndex:

@@ -145,7 +145,11 @@ def _segmented_ranks(c: torch.Tensor) -> torch.Tensor:
 def _cell_choice(x32: torch.Tensor, centroids: torch.Tensor, metric: str, A: int) -> torch.Tensor:
     """Per-row top-``A`` nearest cells ``[n, A]`` (insert placement), in row
     tiles of ~``_CHOICE_TILE_ELEMS`` scores. Exact top-k (``approx_max_k`` is
-    exact on the JAX package's CPU backend too)."""
+    exact on the JAX package's CPU backend too). Below 128 cells, where the
+    JAX package takes ``lax.top_k``, equal scores go to the lowest cell, as
+    probe selection's exact pass sends them: a row placed in one of several
+    equal centroids (a database with fewer distinct rows than cells) then
+    lands in the cell its own query probes."""
     K = centroids.shape[0]
     cn2 = (centroids * centroids).sum(-1)
     cn = torch.sqrt(cn2)
@@ -158,7 +162,7 @@ def _cell_choice(x32: torch.Tensor, centroids: torch.Tensor, metric: str, A: int
             score = dot / torch.clamp(cn, min=1e-30)[None, :]
         else:  # sql2 geometry (|x|^2 constant per row)
             score = -(cn2[None, :] - 2.0 * dot)
-        out.append(torch.topk(score, A, dim=1).indices)
+        out.append(TK.smallest_k(-score, A)[1] if K < 128 else torch.topk(score, A, dim=1).indices)
     return torch.cat(out)
 
 
@@ -390,17 +394,20 @@ def select_probes(state: IVFState, q32: torch.Tensor, P: int, sel_metric: str,
                   probe_sel: str = "auto") -> torch.Tensor:
     """The ``P`` nearest clusters per query, ``[B, P]`` int64.
 
-    "auto"/"fast" with K >= 128 and 2P < K: stage 1 ranks bf16-ROUNDED scores
-    built from bf16-rounded q and centroids with f32 accumulation and keeps
-    2P; stage 2 rescores those in f32 and keeps P. Otherwise one f32 scoring
-    pass. On the card stage 1's product is one bf16 tensor-core GEMM with an
-    f32 accumulator and f32 output (``torch.mm(..., out_dtype=float32)``, as
-    the reference's bf16 MXU pass); the CPU, which has no kernel for it,
+    "auto"/"fast" with K >= 128 and 2P < K: stage 1 ranks the scores of
+    bf16-rounded q and centroids (f32 accumulation) and keeps 2P; stage 2
+    rescores those in f32 and keeps P. Otherwise one f32 scoring pass. On the
+    card stage 1's product is one bf16 tensor-core GEMM with an f32
+    accumulator and f32 output (``torch.mm(..., out_dtype=float32)``, as the
+    reference's bf16 MXU pass); the CPU, which has no kernel for it,
     multiplies the bf16 operands in f32 (the products are exact either way;
-    only the order of accumulation differs). The scale is applied in f32
-    before the one rounding of the scores to bf16, and ``torch.topk`` runs on
-    the bf16 scores: its tie order among equal scores is unspecified, as
-    ``approx_max_k``'s is.
+    only the order of accumulation differs). The reference rounds the scores
+    to bf16 and leaves the order among equal ones to ``approx_max_k``; here
+    ``torch.topk`` runs on the unrounded f32 scores, which is the same order
+    with equal bf16 scores broken by their f32 value. Broken by anything
+    else, a crowded query (several centroids within one bf16 step of its
+    nearest) could lose its own nearest cell from the 2P candidates, and an
+    inserted row then misses itself (ROADMAP.md queue 3).
     """
     K = state.num_clusters
     if probe_sel in ("auto", "fast") and K >= 128 and 2 * P < K:
@@ -413,10 +420,10 @@ def select_probes(state: IVFState, q32: torch.Tensor, P: int, sel_metric: str,
 def probe_candidates(state: IVFState, q32: torch.Tensor, n: int, sel_metric: str,
                      emulate: bool | None = None) -> torch.Tensor:
     """Stage 1 of :func:`select_probes`: the ``n`` best clusters per query by
-    bf16-rounded scores, ``[B, n]`` int64. ``emulate`` (default: on the CPU)
-    multiplies the bf16 operands in f32 on the CUDA cores instead of the one
-    bf16 GEMM with an f32 accumulator (the plain version of the card's
-    stage 1)."""
+    the f32 scores of the bf16-rounded operands, ``[B, n]`` int64.
+    ``emulate`` (default: on the CPU) multiplies the bf16 operands in f32 on
+    the CUDA cores instead of the one bf16 GEMM with an f32 accumulator (the
+    plain version of the card's stage 1)."""
     cb, cn2 = probe_operands(state)
     qb = q32.to(torch.bfloat16)
     if emulate is None:
@@ -429,7 +436,7 @@ def probe_candidates(state: IVFState, q32: torch.Tensor, n: int, sel_metric: str
         s = dot * torch.rsqrt(torch.clamp(cn2, min=1e-30))[None, :]
     else:  # l2 / sql2: same argmax ordering
         s = 2.0 * dot - cn2[None, :]
-    return torch.topk(s.to(torch.bfloat16), n, dim=1).indices
+    return torch.topk(s, n, dim=1).indices
 
 
 def rescore_probes(state: IVFState, q32: torch.Tensor, cand: torch.Tensor, P: int,

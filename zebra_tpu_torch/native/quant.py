@@ -13,16 +13,15 @@ takes its numpy path, which is bitwise the same. Nothing is built at import.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
-import subprocess
 import threading
 
 import numpy as np
 
+from zebra_tpu_torch.native import build_library
+
 _DIR = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_DIR, "zebra_quant.cpp")
-BUILD_DIR = os.path.join(os.path.dirname(_DIR), "_build")
 _FLAGS = (["-O3", "-march=native"], ["-O2"])
 
 _lock = threading.Lock()
@@ -32,41 +31,6 @@ _tried = False
 BUILT_WITH: list[str] | None = None
 
 
-def _native_arch() -> str:
-    """What ``-march=native`` resolves to on this host ("" if unknown)."""
-    try:
-        out = subprocess.run(["g++", "-march=native", "-Q", "--help=target"],
-                             capture_output=True, text=True, timeout=60).stdout
-    except (OSError, subprocess.SubprocessError):
-        return ""
-    for line in out.splitlines():
-        parts = line.split()
-        if len(parts) == 2 and parts[0] == "-march=":
-            return parts[1]
-    return ""
-
-
-def _build() -> tuple[str, list[str]] | None:
-    with open(_SRC, "rb") as f:
-        src = f.read()
-    arch = _native_arch()
-    for extra in _FLAGS:
-        key = hashlib.sha256(src + " ".join(extra).encode() + arch.encode()).hexdigest()[:16]
-        out = os.path.join(BUILD_DIR, f"libzebra_quant-{key}.so")
-        if os.path.exists(out):
-            return out, extra
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        tmp = f"{out}.tmp.{os.getpid()}"
-        try:
-            subprocess.run(["g++", *extra, "-shared", "-fPIC", "-std=c++17", _SRC, "-o", tmp],
-                           check=True, capture_output=True, timeout=120)
-        except (OSError, subprocess.SubprocessError):
-            continue
-        os.replace(tmp, out)
-        return out, extra
-    return None
-
-
 def get_lib():
     """The loaded CDLL, or None when no toolchain can build it."""
     global _lib, _tried, BUILT_WITH
@@ -74,7 +38,7 @@ def get_lib():
         if _tried:
             return _lib
         _tried = True
-        built = _build()
+        built = build_library(_SRC, "zebra_quant", _FLAGS)
         if built is None:
             return None
         lib = ctypes.CDLL(built[0])

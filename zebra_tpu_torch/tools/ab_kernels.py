@@ -19,6 +19,7 @@ the synthetic LSH candidates (a 2M x 768 slab, B=16384, M=3000 and 65,536:
 the gather form; and, where the checkout has it, the sorted dense case of
 B=1024 queries each holding ~20% of 1M occupied rows: the slab-major form
 beside the gather form on the same arguments).
+Probe selection is timed alone on random centroids of the same sizing (P=2).
 Times are CUDA-event means; the host-to-host figure is a host clock around
 ``search_arrays`` (host arrays in and out).
 """
@@ -59,10 +60,14 @@ def main(label: str, ivf_only: bool = False) -> int:
         idx.search_arrays(qn, 10)
         hs.append((time.perf_counter() - t0) * 1e3)
     dq = cs.time_ms(torch, lambda: idx._query_device(q, 10, exact=False), 10)
+    # probe selection alone on random centroids (the synthetic state's are zero)
+    pst = V.empty_state(torch.randn((st.num_clusters, st.dim), generator=g, device=dev), 1, 1,
+                        dtype=torch.int8, refine=True)
+    sel = [cs.time_ms(torch, lambda: V.select_probes(pst, q, 2, "cosine"), 20) for _ in range(3)]
     print(f"{label}: ivf_rerank {' '.join(f'{k:.3f}' for k in ks)} ms; device query "
-          f"{dq:.3f} ms; search_arrays host-to-host {' '.join(f'{h:.1f}' for h in hs)} ms",
-          flush=True)
-    del idx
+          f"{dq:.3f} ms; select_probes P=2 {' '.join(f'{m:.3f}' for m in sel)} ms; "
+          f"search_arrays host-to-host {' '.join(f'{h:.1f}' for h in hs)} ms", flush=True)
+    del idx, pst
     if hasattr(cs, "in_form"):
         from zebra_tpu_torch.ops import experimental_ivf as TX
         from zebra_tpu_torch.ops import ivf_cluster as IC

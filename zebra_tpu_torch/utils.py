@@ -41,6 +41,27 @@ def device_sync() -> None:
         torch.cuda.synchronize()
 
 
+class Stopwatch:
+    """Wall-clock timer for the CLI's reports."""
+
+    def __init__(self):
+        self.t0 = time.perf_counter()
+
+    def elapsed(self) -> float:
+        return time.perf_counter() - self.t0
+
+    def pretty(self) -> str:
+        s = self.elapsed()
+        if s < 1e-3:
+            return f"{s * 1e6:.0f}µs"
+        if s < 1:
+            return f"{s * 1e3:.1f}ms"
+        if s < 60:
+            return f"{s:.2f}s"
+        m, sec = divmod(s, 60.0)
+        return f"{int(m)}m {sec:.1f}s"
+
+
 def uuid7_bytes() -> bytes:
     """Time-ordered 16-byte id (UUIDv7 layout), as ``zebra_tpu.utils``."""
     ms = time.time_ns() // 1_000_000
