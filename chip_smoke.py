@@ -115,7 +115,12 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    ``deduplicate`` of 1000 copies planted by a later insert (exactly those
    removed); ``save``, ``close`` and reopen (same top-10 and blobs);
    ``db.query`` at batch 16384 (kernel 1's launch count by form: both forms
-   present); the CLI (``python -m zebra_tpu_torch.cli`` text insert, query,
+   present) and every live row whose top-1 there is not its own id, with
+   its probes, own cell or the spare, its own f64 distance beside the
+   rank-1 row's and the top-1 of the per-query form, the cluster form, the
+   plain version and the exact scan (each a duplicate, an f64 tie, a row
+   spilled out of its nearest cells, or its own cell dropped by stage 1 of
+   probe selection as ``stage1_witness`` recomputes it exactly); the CLI (``python -m zebra_tpu_torch.cli`` text insert, query,
    stats, clear in subprocesses) and the verify skill's ``hash-64`` drive;
    then the facade's top-10 of every held-out query against kernel 1's
    plain version on the same index and probes (differing ranks f64-verified
@@ -123,6 +128,27 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    guard: random-init text embeddings are crowded), and, on the path's own
    probes at B=1024 and 16384, both forms of kernel 1 against the plain
    version and in turns beside the bound, as phase 4. Nothing is cut.
+13. a growing database at the library defaults (``DatabaseConfig(dim=768)``,
+   durability "full"): the same 1M rows in 16 ``insert_vectors`` calls of
+   62,500; after each call the reason the index wants, whether a retrain
+   or a fold runs, K, the spare, the exact scan's top-1 for 1024 of the
+   rows just inserted (1.0, also for rows landing while a retrain builds),
+   recall@10 of 1024 held-out queries and the self-retrieval of 1024 fresh
+   and 1024 of all rows, one batch's CUDA-event time while a retrain runs;
+   each retrain held against a cold build of its rows (K, C, the k-means
+   objective, recall and self-retrieval) and the first one against the JAX
+   facade's CPU reading on the same rows (``tests/growth_parity.py``);
+   then the retrains (started, committed, drained on the mutating thread,
+   each reason, size and wall time, the ``retrain.*`` stages), the folds
+   and the log left, one batch's time after them, the final K beside a
+   cold build's, kernel 1's launches by form (both present), a reopen
+   beside the live database (the log replayed) and one after ``close``
+   (same top-10 of 1024 held-out queries), and an explicit
+   ``index.rebuild()`` (every row kept, the exact top-10 unchanged, a cold
+   build's K, recall and self-retrieval). Nothing is cut.
+
+Each facade path waits for its background retrain and log fold before it
+times anything and prints the waits (``settle``).
 
 Every IVF path must launch the cluster-major form (its batch-16384
 queries take it by ``ivf_cluster.takes_cluster_form``). Phases 3, 9 and 11
@@ -194,6 +220,24 @@ TEXT_TOWER_ATOL = 1e-4
 #: documents phase 12 removes, and those it inserts again as exact copies
 TEXT_REMOVE = slice(1000, 2000)
 TEXT_DUP_ROWS = slice(5000, 6000)
+#: phase 13: calls that insert the growing database's rows, the first 1/16
+GROWTH_CALLS = 16
+#: phase 13: what a retrain built against a cold build of the same rows with
+#: its own k-means draws: the objective's relative excess, and how far below
+#: the cold build's recall and self-retrieval it may read (the card's
+#: retrains read -0.032 to +0.026 of it, a spread of 0.018 about -0.007,
+#: over two runs of six readings)
+GROWTH_OBJECTIVE_TOL = 0.02
+GROWTH_COLD_TOL = 0.08
+#: phase 13's first retrain (spare-critical at 187,500 rows) as the JAX
+#: package's facade answers after the same rows and calls on the CPU
+#: (``JAX_PLATFORMS=cpu python tests/growth_parity.py --package jax --dim 768
+#: --calls-run 3``), and how far below it the card's port may read (the
+#: port's own CPU run of the same drive reads within 0.017 of it there and
+#: within 0.044 the call before: other k-means draws)
+GROWTH_JAX = {"live": 187_500, "recall": 0.88349609375, "fresh": 0.8779296875,
+              "self": 0.9072265625}
+GROWTH_JAX_TOL = 0.06
 
 
 def check(cond: bool, msg: str) -> None:
@@ -841,7 +885,8 @@ def main_path(torch, zt, V, tmp, base, queries, cfg, tag, counter):
           f"max load={st['max_cluster_load']}, overflow={st['overflow']})")
     check(len(db) == n and st["overflow"] == 0, "rows lost on insert")
     insert_stages(db, tag, quant_before)
-    rec = {"insert_s": build_s, "stages": db.stats.summary() | P.GLOBAL_STATS.summary()}
+    rec = {"insert_s": build_s, "stages": db.stats.summary() | P.GLOBAL_STATS.summary(),
+           "settle_s": [settle(db, tag, "after the insert")]}
 
     before = getattr(*counter)
     t0 = time.perf_counter()
@@ -899,6 +944,7 @@ def main_path(torch, zt, V, tmp, base, queries, cfg, tag, counter):
 
     probe_q = queries[:1024]
     want = [[i for i, _ in row] for row in db.query(probe_q, 10)]
+    rec["settle_s"].append(settle(db, tag, "before the save"))
     t0 = time.perf_counter()
     db.save()
     save_s = time.perf_counter() - t0
@@ -1305,7 +1351,8 @@ def lsh_path(torch, zt, TB, LR, tmp, base, queries):
           f"overflow={st['overflow']})")
     check(len(db) == n and idx.options.rerank == "cuda", "LSH insert lost rows or rerank")
     insert_stages(db, "lsh ", quant_before)
-    rec = {"insert_s": build_s, "stages": db.stats.summary() | P.GLOBAL_STATS.summary()}
+    rec = {"insert_s": build_s, "stages": db.stats.summary() | P.GLOBAL_STATS.summary(),
+           "settle_s": [settle(db, "lsh ", "after the insert")]}
     qt = torch.from_numpy(queries[:1024]).to(idx.device)
     t0 = time.perf_counter()
     cand, cand_valid = TB._candidates(idx.state, qt, probes, mc, lossless)
@@ -1361,6 +1408,7 @@ def lsh_path(torch, zt, TB, LR, tmp, base, queries):
 
     probe_q = queries[:1024]
     want = [[i for i, _ in row] for row in db.query(probe_q, 10)]
+    rec["settle_s"].append(settle(db, "lsh ", "before the save"))
     t0 = time.perf_counter()
     db.save()
     save_s = time.perf_counter() - t0
@@ -1843,7 +1891,8 @@ def text_path(torch, zt, V, R, IC, tmp):
           "the insert stage table lacks a stage")
     insert_stages(db, "text ", quant_before)
     rec = {"insert_s": insert_s, "stages": stages | P.GLOBAL_STATS.summary(),
-           "forward_ms": fwd_ms, "forward_bound_ms": fwd_bound, "tower_err": tower_err}
+           "forward_ms": fwd_ms, "forward_bound_ms": fwd_bound, "tower_err": tower_err,
+           "settle_s": [settle(db, "text ", "after the insert")]}
     doc_of = dict(zip(ids, docs))
 
     # query_documents of the held-out queries
@@ -1900,6 +1949,7 @@ def text_path(torch, zt, V, R, IC, tmp):
     # durability: save, close, reopen
     probe = held[:1024]
     want = db.query_documents(probe, 10)
+    rec["settle_s"].append(settle(db, "text ", "before the save"))
     db.save()
     db.close()
     del db
@@ -1925,6 +1975,7 @@ def text_path(torch, zt, V, R, IC, tmp):
           and sum(by_form.values()) == launches and V.EAGER_LARGE_K == 0,
           "the text path must launch both forms of kernel 1")
     rec.update(big_qps=big_qps, dedup_s=dedup_s, launches=by_form)
+    rec["misses"] = fault_c_report(torch, V, R, IC, db, bigv, big_rows, ids, docs, live)
 
     # the CLI and the canonical drive
     cli_drive(tmp)
@@ -1984,6 +2035,433 @@ def text_path(torch, zt, V, R, IC, tmp):
     del db
     torch.cuda.empty_cache()
     return entry, rec
+
+
+def stage1_witness(torch, st, q, cell: int, metric: str):
+    """Stage 1 of probe selection (``ivf.probe_candidates``; the reference's
+    ``zebra_tpu/index/ivf.py:514-523``) recomputed exactly for one query
+    ``q [D]``: every centroid's score from the bf16-rounded query and
+    centroids, multiplied and summed in f64 (stage 1's products are exact;
+    only its f32 sum rounds), with the |c|^2 of the f32 centroids. Returns
+    ``(above, ref_above, ref_tied)``: the cells scoring strictly above
+    ``cell`` there (stage 1 keeps 2P cells, so ``above >= 2P`` drops it), and
+    with the scores rounded to bf16 as the reference ranks them, the cells
+    strictly above it and those level with it."""
+    qb = q.to(torch.bfloat16).double()
+    cb = st.centroids.to(torch.bfloat16).double()
+    c64 = st.centroids.double()
+    cn2 = (c64 * c64).sum(-1)
+    dot = cb @ qb
+    s = dot / cn2.sqrt().clamp(min=1e-30) if metric == "cosine" else 2.0 * dot - cn2
+    sb = s.float().to(torch.bfloat16)
+    return (int((s > s[cell]).sum()), int((sb > sb[cell]).sum()),
+            int((sb == sb[cell]).sum()) - 1)
+
+
+def fault_c_report(torch, V, R, IC, db, qv, rows, ids, docs, live):
+    """Phase 12's batch-16384 misses: every live row whose top-1 is not its
+    own id, with its probes and own cell (or the spare), its own f64
+    distance beside the rank-1 row's, and the top-1 of the per-query form,
+    the cluster form, the plain version and the exact scan on the same
+    probes; then where its own cell ranks for its query: by the f64 cell
+    score (with the score's gap to the P-th best), among stage 1's 2P
+    candidates, and in the insert's placement order (rank > 0: the row was
+    spilled past fuller cells). A miss passes only as a property of the data
+    or of the reference's design: the rank-1 row at least as near as the
+    row itself in f64 (a duplicate), its own cell tied in f64 with the P-th
+    probe (within TIE_TOL), the row spilled out of its nearest cells, or its
+    own cell dropped by stage 1 of probe selection, witnessed by
+    ``stage1_witness``: scored exactly on the bf16-rounded operands, at
+    least 2P cells score above it, and the reference's bf16 scores do not
+    keep it in every order among equal ones (at least 2P cells above or
+    level with it).
+    Returns the number of misses."""
+    import numpy as np
+
+    idx = db.index
+    st, metric = idx.state, idx.metric
+    P = idx.options.resolved_probes()
+    misses = [q for q in live if rows[q][0][0] != ids[q]]
+    print(f"text misses at batch {len(rows)}: {len(misses)} live rows whose top-1 is not "
+          f"their own id")
+    if not misses:
+        return 0
+    qt = torch.from_numpy(qv[misses]).to(idx.device)
+    probes = V.select_probes(st, qt, P, metric, idx.options.probe_sel)
+    stage1 = V.probe_candidates(st, qt, 2 * P, metric)
+    placed = V._cell_choice(qt, st.centroids, metric, min(idx.options.spill, st.num_clusters))
+
+    def top1(form):
+        return in_form(IC, form, lambda: R.ivf_rerank(st, qt, probes, 10, metric, True))[1][:, 0]
+
+    by_query, by_cluster = top1("query"), top1("cluster")
+    plain = R.ivf_rerank_reference(st, qt, probes, 10, metric, scan_residual=True)[1][:, 0]
+    exact = V.brute_force(st, qt, 10, metric=metric)[1][:, 0]
+    d64 = slab_d64(torch, st, qt, metric, True)
+    c64 = st.centroids.double()
+    dot64 = qt.double() @ c64.T
+    cn2 = (c64 * c64).sum(-1)
+    cell64 = (dot64 / cn2.sqrt().clamp(min=1e-30) if metric == "cosine"
+              else 2.0 * dot64 - cn2)  # higher is nearer, the placement's order
+    row_of = {i: r for r, i in enumerate(ids)}
+    C, spare_start = st.cluster_capacity, st.spare_start
+    unexplained = 0
+    for b, q in enumerate(misses):
+        own = idx._id_to_slot.get(ids[q])
+        got = idx._id_to_slot.get(rows[q][0][0])
+        same_doc = [r for r in range(len(docs)) if r != q and docs[r] == docs[q]][:4]
+        if own is None:
+            print(f"  row {q}: not live (a duplicate of rows {same_doc} removed by deduplicate)")
+            continue
+        d_own, d_got = (float(d64(b, torch.tensor([s], device=idx.device))[0])
+                        for s in (own, got))
+        slots = {name: int(t[b]) for name, t in (("query form", by_query),
+                 ("cluster form", by_cluster), ("plain", plain), ("exact", exact))}
+        line = (f"  row {q}: probes {probes[b].tolist()}; returned row {row_of.get(rows[q][0][0])} "
+                f"(slot {got}) at f64 {d_got:.9g} vs own {d_own:.9g}; same document as rows "
+                f"{same_doc}; top-1 slot by "
+                + ", ".join(f"{k} {v}{' (own)' if v == own else ''}" for k, v in slots.items()))
+        nearer = d_got <= d_own + TIE_TOL * (1 + abs(d_own))
+        if own >= spare_start:
+            print(line + "; own slot in the spare")
+            unexplained += not nearer
+            continue
+        cell = own // C
+        order = torch.argsort(cell64[b], descending=True)
+        rank = int((order == cell).nonzero()[0, 0])
+        pth = float(cell64[b, order[P - 1]])
+        gap = pth - float(cell64[b, cell])
+        tie = rank >= P and gap <= TIE_TOL * (1 + abs(pth))
+        place = placed[b].tolist()
+        spilled = place.index(cell) if cell in place else -1
+        cand = stage1[b].tolist()
+        above, ref_above, ref_tied = stage1_witness(torch, st, qt[b], cell, metric)
+        rounding = (cell not in cand and above >= 2 * P
+                    and ref_above + ref_tied >= 2 * P)  # the reference may drop it too
+        print(line + f"; own cell {cell}: f64 rank {rank} (gap to the P-th best {gap:.3g}, "
+              f"a tie: {tie}), among stage 1's {2 * P} candidates {cand}: {cell in cand} "
+              f"(scored exactly on the bf16-rounded operands, {above} cells above it: "
+              f"dropped by the rounding: {rounding}; the reference's bf16 scores put "
+              f"{ref_above} above it and {ref_tied} level with it), placement order {place} "
+              f"(own at {spilled}; > 0 = spilled past fuller cells)")
+        unexplained += not (nearer or tie or spilled > 0 or rounding)
+    check(not unexplained, f"{unexplained} rows lost their own id to a farther row, their own "
+          f"cell neither tied with the probes, spilled to, nor dropped by stage 1's rounding")
+    return len(misses)
+
+
+def settle(db, tag, where):
+    """Wait for the database's background retrain and log fold, so that no
+    timed section of a phase shares the card or the disk with them; prints
+    the waits and the workers' counters. Returns the seconds waited."""
+    t0 = time.perf_counter()
+    db.wait_for_retrain()
+    t1 = time.perf_counter()
+    db.wait_for_fold()
+    t2 = time.perf_counter()
+    print(f"{tag}background workers {where}: waited {t1 - t0:.2f} s for the retrain and "
+          f"{t2 - t1:.2f} s for the fold; folds committed {db._fold_count}, retrains "
+          f"{db._retrain_count} of {db._retrain_started} started; log {db._delta.size()} bytes")
+    check(not any(t is not None and t.is_alive() for t in (db._retrain_thread, db._fold_thread)),
+          "a background worker outlived its wait")
+    return t2 - t0
+
+
+def batch_ms(torch, db, q, k=10):
+    """One query batch through the facade's pipelined surface: ``(CUDA-event
+    ms, host ms, ms waiting for the read lock)``. The events bracket the
+    submit under the read lock, so they time what the shared stream ran for
+    the batch, kernels a background retrain queued meanwhile included; the
+    host time adds the lock wait and the readback."""
+    t0 = time.perf_counter()
+    with db._lock.read():
+        t1 = time.perf_counter()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        tok = db.index.search_submit(q, k)
+        end.record()
+    rows = db.index.format_collect(tok)
+    host = (time.perf_counter() - t0) * 1e3
+    end.synchronize()
+    return start.elapsed_time(end), host, (t1 - t0) * 1e3, len(rows)
+
+
+def growth_quality(torch, V, index, base, ids, queries, s, e):
+    """``{"recall", "fresh", "self"}`` of an index holding ``base[:e]``:
+    recall@10 of 1024 held-out queries against its exact scan, and the
+    top-1 self-retrieval of 1024 rows just inserted (``base[s:e]``) and of
+    1024 rows of all (as ``tests/growth_parity.py`` reads both packages)."""
+    import numpy as np
+
+    q = queries[:1024]
+    _, approx, _ = index.search_arrays(q, 10)
+    _, exact, _ = V.brute_force(index.state, torch.from_numpy(q).to(index.device), 10,
+                                metric=index.metric)
+    exact = exact.cpu().numpy()
+    recall = float(np.mean([len(set(a) & set(b)) / 10 for a, b in zip(approx, exact)]))
+
+    def own(lo):
+        pick = np.linspace(lo, e - 1, 1024).astype(np.int64)
+        return float(np.mean([r[0][0] == ids[i] for r, i in zip(index.search(base[pick], 1),
+                                                                   pick)]))
+
+    return {"recall": recall, "fresh": own(s), "self": own(0)}
+
+
+def growth_path(torch, zt, V, R, tmp, base, queries):
+    """Phase 13: a database at the library defaults that users keep filling.
+    1/GROWTH_CALLS of ``base`` first, then the rest in GROWTH_CALLS - 1
+    equal calls, while a reader thread queries a batch of 1024 every 0.2 s
+    (its latency, by whether a retrain or a fold ran meanwhile). After each
+    call: the reason the index wants, the workers, K and the spare, the
+    exact scan's top-1 for 1024 rows just inserted (every one found: no row
+    lost, rows landing while a retrain builds included), and
+    ``growth_quality``. After a call in which a retrain committed, what it
+    built is held against a cold build of the same rows in a bare index
+    (its own k-means draws): the same K and C, a k-means objective at most
+    GROWTH_OBJECTIVE_TOL above the cold build's, and recall, fresh and
+    whole self-retrieval short of the cold build's by at most GROWTH_COLD_TOL;
+    after the first, also against the JAX package's facade on the same
+    rows and calls (GROWTH_JAX, floors less GROWTH_JAX_TOL). Then the
+    retrains, folds and log, the final shape beside a cold build's, the
+    reason left, kernel 1's launches by form, a reopen beside the live
+    database (the log replayed) and one after ``close`` (same top-10), and
+    an explicit ``index.rebuild()``: every row kept, the exact top-10
+    unchanged, recall and self-retrieval those of a cold build. Returns
+    kernel 1's launch count by form over the phase and the phase's record."""
+    import threading
+
+    import numpy as np
+    from zebra_tpu_torch import profiling as P
+    from zebra_tpu_torch.index.ivf_host import resolved_clusters
+
+    n, n_queries = base.shape[0], queries.shape[0]
+    step = n // GROWTH_CALLS
+    path = os.path.join(tmp, "growth.zebra")
+    R.LAUNCHES = 0
+    R.LAUNCHES_BY_FORM.clear()
+    V.EAGER_LARGE_K = 0
+    P.GLOBAL_STATS.ops.clear()
+    db = zt.Database.create(path, zt.DatabaseConfig(dim=base.shape[1]))
+    ids: list[bytes] = []
+    calls, samples, witnessed = [], [], []
+    stop, pause = threading.Event(), threading.Event()
+
+    def busy():
+        return tuple(t is not None and t.is_alive() for t in (db._retrain_thread, db._fold_thread))
+
+    def reader():
+        while not stop.wait(0.2):
+            if len(db) and not pause.is_set():
+                was = busy()
+                samples.append((was, busy(), *batch_ms(torch, db, queries[:1024])))
+
+    def spread(cents, e):
+        """k-means' objective for ``cents`` over 65,536 rows of ``base[:e]``:
+        the mean squared distance to the nearest centroid."""
+        x = torch.from_numpy(base[np.linspace(0, e - 1, 65536).astype(np.int64)]).to(cents.device)
+        c = cents[:, : x.shape[1]].float()
+        total = sum(float(torch.cdist(x[i : i + 8192], c).min(1).values.double().pow(2).sum())
+                    for i in range(0, x.shape[0], 8192))
+        return total / x.shape[0]
+
+    def against_cold(e, s, got):
+        """The retrained index against a cold build of ``base[:e]``."""
+        cold = db.index._clone_empty()
+        t0 = time.perf_counter()
+        cold.add(base[:e], ids=ids[:e])
+        cold_s = time.perf_counter() - t0
+        want = growth_quality(torch, V, cold, base, ids, queries, s, e)
+        shape = (cold.state.num_clusters, cold.state.cluster_capacity)
+        objective = (spread(db.index.state.centroids, e), spread(cold.state.centroids, e))
+        del cold
+        torch.cuda.empty_cache()
+        print(f"growth retrain at {e} rows: K={db.index.state.num_clusters}, "
+              f"C={db.index.state.cluster_capacity}, k-means objective {objective[0]:.6g}, "
+              f"{json.dumps(got)}; a cold build of the same rows ({cold_s:.2f} s): "
+              f"K={shape[0]}, C={shape[1]}, k-means objective {objective[1]:.6g}, "
+              f"{json.dumps(want)}")
+        check(shape == (db.index.state.num_clusters, db.index.state.cluster_capacity)
+              and objective[0] <= objective[1] * (1 + GROWTH_OBJECTIVE_TOL)
+              and all(got[m] >= want[m] - GROWTH_COLD_TOL for m in want),
+              f"the retrain at {e} rows built a worse index than a cold build of its rows")
+        if not witnessed:
+            ref = GROWTH_JAX
+            check(e == ref["live"] and all(got[m] >= ref[m] - GROWTH_JAX_TOL for m in want),
+                  f"the first retrain answers below the JAX package's on the same rows {ref}")
+        witnessed.append({"live": e, "retrained": got, "cold": want, "cold_s": cold_s,
+                          "objective": objective})
+
+    sampler = threading.Thread(target=reader, name="growth-reader", daemon=True)
+    sampler.start()
+    t_start = time.perf_counter()
+    try:
+        for c in range(GROWTH_CALLS):
+            s, e = c * step, (n if c == GROWTH_CALLS - 1 else (c + 1) * step)
+            before = db._retrain_count
+            t0 = time.perf_counter()
+            ids += db.insert_vectors(base[s:e])
+            dt = time.perf_counter() - t0
+            idx = db.index
+            wanted, (retraining, folding) = idx._rebuild_wanted, busy()
+            pick = np.linspace(s, e - 1, 1024).astype(np.int64)
+            found = float(np.mean([h[0][0] == ids[i] for h, i in zip(
+                idx.search(base[pick], 1, exact=True), pick)]))
+            held = db.query(queries[:1024], 10)
+            got = growth_quality(torch, V, idx, base, ids, queries, s, e)
+            st = idx.stats()
+            print(f"growth call {c + 1}/{GROWTH_CALLS}: +{e - s} rows in {dt:.2f} s ({len(db)} "
+                  f"live); reason wanted {wanted}; retrain running {retraining}, fold running "
+                  f"{folding}; K={st['clusters']}, C={st['cluster_capacity']}, spare "
+                  f"{st['spare_used']}/{st['spare_capacity']}; retrains {db._retrain_count}, "
+                  f"folds {db._fold_count}; the exact scan finds {found:.4f} of 1024 rows just "
+                  f"inserted; {json.dumps(got)}")
+            calls.append({"s": dt, "wanted": wanted, "retraining": retraining,
+                          "folding": folding, "K": st["clusters"], "C": st["cluster_capacity"],
+                          "spare_used": st["spare_used"], "self_exact": found, **got})
+            check(found == 1.0, "a row just inserted is missing from the index")
+            check(all(len(r) == 10 and all(np.isfinite(d) for _, d in r) for r in held),
+                  "every held-out query must return 10 finite results")
+            if db._retrain_count > before and not retraining:
+                pause.set()
+                try:
+                    against_cold(e, s, got)
+                finally:
+                    pause.clear()
+        insert_s = time.perf_counter() - t_start
+        t0 = time.perf_counter()
+        db.wait_for_retrain()
+        wait_retrain = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        db.wait_for_fold()
+        wait_fold = time.perf_counter() - t0
+    finally:
+        stop.set()
+        sampler.join(60)
+    check(not sampler.is_alive() and samples and all(m == 1024 for *_, m in samples),
+          "the reader thread failed or hung")
+    check(len(witnessed) == db._retrain_count >= 1,
+          "every retrain must be held against a cold build of its rows")
+    idx = db.index
+    st = idx.stats()
+    stages = P.GLOBAL_STATS.summary()
+    print(f"growth: {n} rows in {GROWTH_CALLS} calls, {insert_s:.2f} s of calls, checks and "
+          f"cold builds; then waited {wait_retrain:.2f} s for the retrain, {wait_fold:.2f} s "
+          f"for the fold")
+    print(f"growth retrains: started {db._retrain_started}, committed {db._retrain_count}, "
+          f"drained on the mutating thread {db._retrain_drains}; each (reason, live rows, "
+          f"wall s): {[(r, m, round(t, 3)) for r, m, t in db._retrain_log]}")
+    print("growth stages: " + json.dumps({k: v for k, v in stages.items()
+                                          if k.split(".")[0] in ("retrain", "rebuild", "ivf")}))
+
+    def lat(rows):
+        if not rows:
+            return None
+        out = {"n": len(rows)}
+        for key, i in (("event_ms", 2), ("host_ms", 3), ("lock_ms", 4)):
+            v = sorted(r[i] for r in rows)
+            out[key] = [round(v[len(v) // 2], 3), round(v[-1], 3)]
+        return out
+
+    reader_rec = {"retrain": lat([r for r in samples if r[0][0] or r[1][0]]),
+                  "fold": lat([r for r in samples if (r[0][1] or r[1][1])
+                               and not (r[0][0] or r[1][0])]),
+                  "idle": lat([r for r in samples if not any(r[0] + r[1])])}
+    print(f"growth reader: a batch of 1024 every 0.2 s during the growth (search_submit "
+          f"under the read lock, format_collect; paused over the cold builds), by what ran "
+          f"beside it: [median, max] of the CUDA events around the submit (the shared "
+          f"stream's time for it), of the host clock and of its wait for the read lock: "
+          f"{json.dumps(reader_rec)}")
+    threshold = db._fold_threshold()
+    log_bytes = db._delta.size()
+    print(f"growth folds committed {db._fold_count}; log {log_bytes} bytes left (fold threshold "
+          f"{threshold}: the floor {db._fold_floor}, or the snapshot's bytes when larger)")
+    after = sorted(batch_ms(torch, db, queries[:1024]) for _ in range(5))[2]
+    print(f"growth: one batch of 1024 after the workers, median of 5: {after[0]:.3f} ms "
+          f"(CUDA events), {after[1]:.3f} ms host")
+    reader_rec["after"] = after[:3]
+    rec = {"insert_s": insert_s, "calls": calls, "retrains": db._retrain_log,
+           "retrain_started": db._retrain_started, "retrain_drains": db._retrain_drains,
+           "witnessed": witnessed, "folds": db._fold_count, "log_bytes": log_bytes,
+           "reader": reader_rec, "stages": stages, "wait_retrain_s": wait_retrain,
+           "wait_fold_s": wait_fold}
+
+    missing = sum(i not in idx for i in ids)
+    cold_k = resolved_clusters(idx.options, n)
+    reason = idx._rebuild_reason()
+    print(f"growth final: {len(db)} live, {missing} ids missing; K={st['clusters']} (a cold "
+          f"build of {n} rows resolves to {cold_k}), C={st['cluster_capacity']}, spare "
+          f"{st['spare_used']}/{st['spare_capacity']}, rebuild reason now {reason}")
+    check(len(db) == n and not missing, "the growing database lost rows")
+    check(st["clusters"] > calls[0]["K"], "no retrain re-sized the growing index")
+    check(reason is None, "a rebuild is still wanted after the growth")
+    check(db._fold_count >= 1 and log_bytes <= threshold,
+          "no fold committed, or the log stayed past the fold threshold")
+    big = idx.search_arrays(queries, 10)[1]  # batch 16384: the cluster-major form
+    check(big.shape == (n_queries, 10), "the batch-16384 query returned another shape")
+    launches = dict(R.LAUNCHES_BY_FORM)
+    print(f"growth launches: ivf_rerank {R.LAUNCHES} {launches}")
+    check(launches.get("int8+residual/query", 0) > 0
+          and launches.get("int8+residual/cluster", 0) > 0
+          and sum(launches.values()) == R.LAUNCHES and V.EAGER_LARGE_K == 0,
+          "the growing database must launch both forms of kernel 1")
+    rec.update(launches=launches, K=st["clusters"], cold_K=cold_k)
+
+    # recovery: reopen beside the live database (a crash), then close and reopen
+    probe = queries[:1024]
+    want = [[i for i, _ in r] for r in db.query(probe, 10)]
+    t0 = time.perf_counter()
+    crashed = zt.Database.open(path)
+    crash_open_s = time.perf_counter() - t0
+    crashed.wait_for_retrain()
+    got = [[i for i, _ in r] for r in crashed.query(probe, 10)]
+    exact_live = [{i for i, _ in r} for r in db.index.search(probe, 10, exact=True)]
+    exact_got = [{i for i, _ in r} for r in crashed.index.search(probe, 10, exact=True)]
+    print(f"growth reopen without a close: {crash_open_s:.2f} s, replaying {log_bytes} log "
+          f"bytes; {len(crashed)} live; the same top-10 of 1024 held-out queries by the query "
+          f"{np.mean([a == b for a, b in zip(got, want)]):.4f}, by the exact scan "
+          f"{np.mean([a == b for a, b in zip(exact_got, exact_live)]):.4f}")
+    check(exact_got == exact_live and len(crashed) == n,
+          "the database reopened after a crash holds other rows")
+    del crashed
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    db.close()
+    close_s = time.perf_counter() - t0
+    left = os.path.getsize(os.path.join(f"{path}.d", "delta.log"))
+    t0 = time.perf_counter()
+    db = zt.Database.open(path)
+    open_s = time.perf_counter() - t0
+    got = [[i for i, _ in r] for r in db.query(probe, 10)]
+    print(f"growth close {close_s:.2f} s, open {open_s:.2f} s replaying {left} log bytes; "
+          f"same top-10: {got == want}")
+    check(got == want and len(db) == n, "the reopened database differs")
+    rec.update(crash_open_s=crash_open_s, close_s=close_s, open_s=open_s)
+
+    # an explicit rebuild of the grown refined-int8 index keeps every row
+    exact_before = [{i for i, _ in r} for r in db.index.search(probe, 10, exact=True)]
+    P.GLOBAL_STATS.ops.clear()
+    t0 = time.perf_counter()
+    with db._lock.write():
+        db.index.rebuild("explicit")
+    rebuild_s = time.perf_counter() - t0
+    exact_after = [{i for i, _ in r} for r in db.index.search(probe, 10, exact=True)]
+    same = float(np.mean([a == b for a, b in zip(exact_before, exact_after)]))
+    print(f"growth explicit rebuild: {rebuild_s:.2f} s ({json.dumps(P.GLOBAL_STATS.summary())}); "
+          f"{len(db)} live, K={db.index.state.num_clusters}; the exact top-10 id set is the "
+          f"same for {same:.4f} of 1024 held-out queries")
+    after_rebuild = growth_quality(torch, V, db.index, base, ids, queries, 0, n)
+    print(f"growth after the explicit rebuild: {json.dumps(after_rebuild)}")
+    check(len(db) == n and all(i in db.index for i in ids[::997]), "the rebuild lost rows")
+    check(same >= MIN_SLOT_AGREEMENT, "the rebuild changed the exact top-10")
+    check(db.index.state.num_clusters == cold_k and after_rebuild["recall"] >= MIN_RECALL
+          and after_rebuild["self"] == 1.0,
+          "the rebuilt index does not answer as a cold build does")
+    rec.update(rebuild_s=rebuild_s, rebuild_same=same, after_rebuild=after_rebuild)
+    db.close()
+    del db
+    torch.cuda.empty_cache()
+    return launches, rec
 
 
 def kernels_record(forms, path_forms, ivf_total, lsh_run, lsh_rec, wave_forms, path_recs,
@@ -2212,6 +2690,13 @@ def main() -> int:
         torch.cuda.empty_cache()
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+    # phase 13: the growing database at the library defaults
+    tmp = tempfile.mkdtemp(prefix="zebra_smoke_growth_")
+    try:
+        growth_forms, pipe_recs["growth"] = growth_path(torch, zt, V, R, tmp, base, queries)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     del data, base, queries
 
     # phase 12: the text document path (defaults.text_db, BGE-small on the card)
@@ -2220,8 +2705,10 @@ def main() -> int:
         text_entry, pipe_recs["text"] = text_path(torch, zt, V, R, IC, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    growth_launches = sum(growth_forms.values())
     print(f"launches: ivf_rerank {launches} {scan_forms} (defaults), {bal_launches} "
-          f"{bal_forms} (balanced) and {f32_launches} {f32_forms} (f32), lsh_rerank "
+          f"{bal_forms} (balanced), {f32_launches} {f32_forms} (f32) and {growth_launches} "
+          f"{growth_forms} (growing database), lsh_rerank "
           f"{lsh_run['launches']} (slab-major form {lsh_run['launches_slab']}), "
           f"ivf_rerank_wave {wave_launches} {wave_by_form}, ivf_rerank_aug {aug_launches} "
           f"{aug_by_form}, ivf_rerank {text_entry['launches']} {pipe_recs['text']['launches']} "
@@ -2230,7 +2717,8 @@ def main() -> int:
 
     print("pipeline: " + json.dumps(pipe_recs | {"lsh": lsh_run["pipeline"]}))
     record = kernels_record(
-        forms, (scan_forms, bal_forms, f32_forms), launches + bal_launches + f32_launches,
+        forms, (scan_forms, bal_forms, f32_forms, growth_forms),
+        launches + bal_launches + f32_launches + growth_launches,
         lsh_run, lsh_rec, wave_forms, path_recs, wave_by_form, wave_launches, aug_launches,
         aug_by_form, aug_forms)
     record["kernels"].append(text_entry)

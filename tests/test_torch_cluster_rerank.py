@@ -360,6 +360,66 @@ def test_probe_cache_renewed_by_cold_build_and_load(tmp_path):
     assert torch.equal(st3.probe_cache[1], st3.centroids.to(torch.bfloat16))
 
 
+def _chip_smoke():
+    """The repository root's ``chip_smoke`` module (its stage-1 witness)."""
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    import chip_smoke
+
+    return chip_smoke
+
+
+def _crowded_query(metric, K=128, D=64, tries=200):
+    """A unit query and K centroids whose exact nearest (returned) scores
+    above four rivals by 2e-5 in cosine, while the bf16 rounding of the
+    operands puts those four above it, strictly even after the scores' own
+    rounding to bf16; the other centroids lie far. sql2 uses centroids of
+    norm 0.02 at cosine 0.01, so that the scores sit near 0 where bf16 is
+    fine. The first seed that gives such a case."""
+    chip_smoke = _chip_smoke()
+    for seed in range(tries):
+        rng = np.random.default_rng(seed)
+        q = rng.standard_normal(D)
+        q /= np.linalg.norm(q)
+        r, at = (1.0, 0.01) if metric == "cosine" else (0.02, 0.01)
+        cos = np.full(K, -0.5)
+        cos[:5] = at + 1e-5 * rng.standard_normal(5)
+        cos[0] = cos[:5].max() + 2e-5
+        u = rng.standard_normal((K, D))
+        u -= np.outer(u @ q, q)
+        u /= np.linalg.norm(u, axis=1, keepdims=True)
+        c = r * (cos[:, None] * q[None] + np.sqrt(1 - cos[:, None] ** 2) * u)
+        perm = rng.permutation(K)
+        q, c, own = q.astype(np.float32), c[perm].astype(np.float32), int(np.argsort(perm)[0])
+        st = TV.empty_state(torch.from_numpy(c), 16, 64, dtype=torch.float32, refine=False)
+        exact = TV.select_probes(st, torch.from_numpy(q[None]), 1, metric, probe_sel="f32")
+        above, ref_above, _ = chip_smoke.stage1_witness(torch, st, torch.from_numpy(q), own,
+                                                        metric)
+        if int(exact[0, 0]) == own and above >= 4 and ref_above >= 4:
+            return q, c, own, st
+    raise AssertionError("no crowded query found")
+
+
+@pytest.mark.parametrize("metric", ["cosine", "sql2"])
+def test_stage_one_rounding_drops_the_nearest_cell_in_both_packages(metric):
+    """Fault C's cause: a crowded query whose nearest centroid the bf16
+    rounding of stage 1's operands puts below 2P = 4 others. ``chip_smoke``'s
+    exact witness says so, and both packages' ``select_probes`` (P=2, two
+    stages) leave that cell out; a query at a centroid keeps its own."""
+    chip_smoke = _chip_smoke()
+    q, c, own, st = _crowded_query(metric)
+    jst = JV.empty_state(jnp.asarray(c), 16, 0, dtype=jnp.float32)
+    jp = np.asarray(JV.select_probes(jst, jnp.asarray(q[None]), 2, metric))
+    tp = TV.select_probes(st, torch.from_numpy(q[None]), 2, metric)
+    assert own not in jp[0].tolist() and own not in tp[0].tolist()
+    assert own not in TV.probe_candidates(st, torch.from_numpy(q[None]), 4, metric)[0].tolist()
+    near = torch.from_numpy(c[own] / np.linalg.norm(c[own]))
+    assert chip_smoke.stage1_witness(torch, st, near, own, metric)[0] < 4
+    assert own in TV.select_probes(st, near[None], 2, metric)[0].tolist()
+
+
 def test_select_probes_on_cpu_keeps_the_emulated_stage_one():
     """On the CPU stage 1 multiplies the bf16 operands in f32 and selects on
     the bf16 scores; the probes equal an exact-f32 top-P wherever the f32

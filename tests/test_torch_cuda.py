@@ -834,3 +834,41 @@ def test_text_tower_on_the_card_matches_the_cpu_tower(cuda, tmp_path):
     db = T.defaults.text_db(str(tmp_path / "t.zebra"))
     ids = db.insert_documents(docs)
     assert db.query_documents(docs[:8], 1) == {q: {ids[q]: docs[q]} for q in range(8)}
+
+
+def test_retrain_captures_overlapping_inserts_keep_the_logged_rows(cuda, tmp_path, monkeypatch):
+    """A background retrain on the card whose capture chunks (2048 rows each)
+    are gathered while facade inserts write the live slab in place: after
+    the swap every row holds (to the pair's requantisation, 1e-4 of its
+    largest element) the value its log record holds, as a database opened
+    from the log alone shows, and every row inserted during the retrain is
+    in the adopted index (the exact scan finds it)."""
+    from zebra_tpu_torch.index import ivf_host as TH
+
+    x = _blobs(3, 24000, 128)
+    db = T.Database.create(str(tmp_path / "g.zebra"), T.DatabaseConfig(dim=128))
+    db._fold_floor = 1 << 40
+    db._RETRAIN_CHUNK = 2048
+    ids = db.insert_vectors(x[:4000])
+    during = []
+    orig = TH.IVFIndex._shadow_ingest
+
+    def ingest(self, data, chunk_ids):
+        if len(during) < 4:  # inserts between capture chunks, no lock held here
+            during.append(db.insert_vectors(x[4000 + 1000 * len(during): 5000 + 1000 * len(during)]))
+        return orig(self, data, chunk_ids)
+
+    monkeypatch.setattr(TH.IVFIndex, "_shadow_ingest", ingest)
+    ids += db.insert_vectors(x[8000:20000])  # past 4x the built size: the retrain starts
+    db.wait_for_retrain(timeout=600)
+    monkeypatch.undo()
+    ids += [i for d in during for i in d]
+    assert db._retrain_count == 1 and len(during) == 4 and len(db) == 20000
+    replayed = T.Database.open(db.path)
+    some = ids[::7]
+    live = db.index._take_rows(np.array([db.index._id_to_slot.get(i) for i in some]))
+    logged = replayed.index._take_rows(np.array([replayed.index._id_to_slot.get(i) for i in some]))
+    assert bool(((live - logged).abs() <= 1e-4 * logged.abs().amax(1, keepdim=True)).all())
+    hits = db.index.search(x[4000:8000], 1, exact=True)
+    assert [h[0][0] for h in hits] == [i for d in during for i in d]
+    db.close()

@@ -543,9 +543,9 @@ def test_spare_growth_retry_matches_jax(rng, monkeypatch, tier):
     spare grows, as the JAX package retries them (refined int8 re-quantises
     the f32 rows; the array-wire tiers insert the f32 rows themselves), so
     both store the same state. 208 rows fill the 4 x 32 cluster rows and
-    overflow the 64-row spare by 16. The JAX index defers the rebuild its
-    policy then asks for, as under its facade: a rebuild re-inserts the
-    stored rows, and the port has no rebuild policy yet."""
+    overflow the 64-row spare by 16. Both indexes defer the rebuild their
+    policy then asks for, as under the facade: a rebuild would re-insert the
+    stored rows (``tests/test_torch_rebuild.py`` holds the rebuilds)."""
     x = _blobs(rng, 208)
     cents = x[rng.choice(208, 4, replace=False)] + 0.01
     monkeypatch.setattr(JIndex, "_train_centroids", lambda self, k, data: jnp.asarray(cents[:k]))
@@ -556,6 +556,7 @@ def test_spare_growth_retry_matches_jax(rng, monkeypatch, tier):
     jix = JIndex(dim=128, options=JOptions(**kw))
     jix.defer_rebuild = True
     tix = TIndex(dim=128, options=TOptions(**kw), device="cpu")
+    tix.defer_rebuild = True
     jix.add(x, ids=list(ids))
     tix.add(x, ids=list(ids))
     st = tix.state

@@ -209,7 +209,8 @@ def test_multi_span_insert_equals_one_span_per_call(rng, tier):
 def test_pipelined_spare_growth_matches_jax(rng, monkeypatch, tier):
     """Spans that overflow a full spare inside one pipelined ``add``: both
     packages resolve slots two spans behind, grow the spare and retry the
-    rows it could not take, so they store the same state and slots."""
+    rows it could not take, so they store the same state and slots (both
+    defer the rebuild their policy then asks for, as under the facade)."""
     x = rng.standard_normal((600, 32)).astype(np.float32)
     cents = x[rng.choice(600, 4, replace=False)] + 0.01
     monkeypatch.setattr(JIndex, "_train_centroids",
@@ -222,6 +223,7 @@ def test_pipelined_spare_growth_matches_jax(rng, monkeypatch, tier):
     jix = JIndex(dim=32, options=Z.IndexOptions(**kw))
     jix.defer_rebuild = True
     tix = TIndex(dim=32, options=T.IndexOptions(**kw), device="cpu")
+    tix.defer_rebuild = True
     jix.add(x[:100], ids=ids[:100])
     tix.add(x[:100], ids=ids[:100])
     jix.add(x[100:], ids=ids[100:], span_rows=100)

@@ -3,9 +3,12 @@
 
 Owns id <-> slot maps, the pipelined insert, the pipelined query surface
 (``search_submit`` / ``search_collect`` / ``search_stream``), result
-formatting, deduplication, inline rebuilds (a backend's ``_rebuild_reason``
-checked after every add and remove; never on a background worker, ROADMAP.md
-queue 1, item 8) and the snapshot format (``index.json`` meta +
+formatting, deduplication, the rebuild logic (a backend's
+``_rebuild_reason`` checked after every add and remove: a bare index
+rebuilds inline, one under ``defer_rebuild`` records the reason for its
+owner's background retrain), the shadow protocol of that retrain
+(``_clone_empty`` ... ``_adopt``), snapshot captures (``snapshot_capture``,
+``write_capture``) and the snapshot format (``index.json`` meta +
 ``arrays.npz``, the same files the JAX package writes).
 
 Where the JAX package relies on asynchronous dispatch, the port orders its
@@ -16,6 +19,13 @@ runs there, so a query queued before a mutation reads the state before it),
 and the current stream waits on a copy's event only where it consumes the
 copy. On CPU tensors the same code runs with synchronous copies and no
 pinning.
+
+JAX updates the state functionally (an insert donates the old buffers); the
+port writes it in place. So every capture a background worker takes under
+the read lock is a COPY queued on the current stream before the lock is
+released (a gather, ``clone``): the next in-place write can only be queued
+after the write lock is taken, so the device runs it after the copy. A
+slice would be a view and would read later writes.
 """
 
 from __future__ import annotations
@@ -42,6 +52,9 @@ _ZERO_ID = b"\x00" * 16
 _RING_SLOTS = 3
 #: byte alignment of the parts packed into one staging buffer
 _ALIGN = 16
+#: device bytes ``snapshot_capture(clone=True)`` may copy; past it the
+#: capture is refused (``cloned: False``) and the fold streams chunks
+_CLONE_HBM_BUDGET = 4 << 30
 
 
 def default_device() -> str:
@@ -264,6 +277,15 @@ class BaseVectorIndex:
         self._copy_streams = None
         #: pinned buffers of the insert pipeline, made at first use
         self._ring = None
+        #: True: a mutation that finds a rebuild reason records it in
+        #: ``_rebuild_wanted`` for the owner's background retrain (the
+        #: Database facade sets it) instead of rebuilding inline
+        self.defer_rebuild = False
+        #: pending rebuild reason under ``defer_rebuild`` (None = none)
+        self._rebuild_wanted: str | None = None
+        #: bumped whenever slot -> row meaning changes wholesale (rebuild,
+        #: adopt, clear); chunked captures and retrains abort on a change
+        self._struct_gen = 0
 
     # -- introspection --------------------------------------------------------
 
@@ -602,19 +624,34 @@ class BaseVectorIndex:
         self._slot_ids = SlotIdArena()
         self._id_to_slot = IdSlotMap()
         self._built_n = 0
+        self._rebuild_wanted = None
+        self._struct_gen += 1
 
     # -- rebuild ----------------------------------------------------------------
 
     def _maybe_rebuild(self) -> None:
-        """Growth / compaction policy after a mutation: rebuild inline when
-        the backend names a reason."""
+        """Growth / compaction policy after a mutation
+        (``zebra_tpu/index/base.py:356-371``): the backend's
+        :meth:`_rebuild_reason` names why; under ``defer_rebuild`` the
+        reason is recorded for the owner's background retrain, else the
+        rebuild runs inline when :meth:`_rebuild_admissible` lets it."""
         reason = self._rebuild_reason()
-        if reason:
+        if not reason:
+            return
+        if self.defer_rebuild:
+            self._rebuild_wanted = reason
+            return
+        if self._rebuild_admissible(reason):
             self.rebuild(reason)
 
     def _rebuild_reason(self) -> str | None:
         """Why a rebuild is warranted right now (None = it isn't)."""
         return None
+
+    def _rebuild_admissible(self, reason: str) -> bool:
+        """Resource gate of an INLINE rebuild (a backend may refuse one whose
+        transient would not fit the device)."""
+        return True
 
     def _pre_rebuild(self, reason: str | None) -> None:
         """Policy hook run before a rebuild captures the live rows."""
@@ -624,32 +661,74 @@ class BaseVectorIndex:
 
     def rebuild(self, reason: str | None = None) -> None:
         """Re-place every live vector into fresh structures sized to the
-        current population (compacts tombstones). The live rows are
-        gathered on the device and re-inserted from there: the slab never
-        goes through the host. Peak memory is the old state plus the live
-        rows, then the live rows plus the new state."""
+        current population (compacts tombstones;
+        ``zebra_tpu/index/base.py:382-416``), in the reference's order:
+        capture (the live rows gathered on the device as stored values; the
+        slab never goes through the host), free the old state, build the new
+        one (trained on the captured rows), ingest the rows. Peak memory is
+        the old state plus the live rows, then the live rows plus the new
+        state (what ``_rebuild_peak_bytes`` counts)."""
         self._wal_cb = None  # re-inserted rows are already logged
         self._pre_rebuild(reason)
         with timed("rebuild.capture"):
             order, ids = self._live_order_ids()
-            data = self._take_rows(order) if len(order) else None
+            data = self._gather_live(order) if len(order) else None
+        n = len(ids)
         self.state = None  # free the old structures before the new ones
-        with timed("rebuild.state", items=len(ids)):
-            self._shadow_begin(len(ids), data)
+        with timed("rebuild.state", items=n):
+            self._shadow_begin(n, data)
         self._slot_ids = SlotIdArena()
         self._id_to_slot = IdSlotMap()
         self._reset_alloc_mirrors()
-        if ids:
+        self._rebuild_wanted = None
+        self._struct_gen += 1  # slot -> row meaning changed wholesale
+        if n:
             self._shadow_ingest(data, ids)
 
+    # -- background retrain hooks (``zebra_tpu/index/base.py:418-502``) ----------
+    #
+    # The owner's retrain worker builds a SHADOW index with no lock held
+    # (readers keep the live state) and swaps it in with _adopt under a
+    # brief write lock:
+    #   shadow = idx._clone_empty(); idx._prepare_shadow(shadow, reason)
+    #   order, ids = idx._live_order_ids()            # under the read lock
+    #   sample = idx._gather_live(order_subset)       # under the read lock
+    #   shadow._shadow_begin(len(ids), sample)        # train, no lock
+    #   for chunk: idx._gather_live(...) -> shadow._shadow_ingest(...)
+    #   idx._adopt(shadow)                            # under the write lock
+    # Each gather is a copy queued on the current stream under the read
+    # lock, so it runs before any later in-place write (module docstring).
+
+    #: extra instance fields _adopt copies beyond the base serving set
+    _ADOPT_EXTRA: tuple = ()
+
+    def _clone_empty(self):
+        """A fresh empty index of this one's configuration on its device
+        (with the re-rank the caller gave, so the stored width is the same)."""
+        return type(self)(dim=self.dim, metric=self.metric,
+                          options=dataclasses.replace(self.options, rerank=self._given_rerank),
+                          metric_power=self.metric_power, device=self.device)
+
+    def _prepare_shadow(self, shadow, reason: str | None) -> None:
+        """Carry rebuild-policy state onto a shadow (subclass hook)."""
+
     def _live_order_ids(self):
-        """(ascending live slots, their ids)."""
+        """(ascending live slots, their ids) — capture under a read lock."""
         order = self._slot_ids.live_slots()
         return order, self._slot_ids.take_list(order)
 
+    def _gather_live(self, order) -> torch.Tensor:
+        """Stored values of the rows at slots ``order`` (a device gather,
+        i.e. a copy: call under a read lock)."""
+        return self._take_rows(np.asarray(order, np.int64))
+
+    def _train_sample_target(self, n: int) -> int:
+        """Rows of training data :meth:`_shadow_begin` wants for ~n vectors."""
+        return min(n, 65536)
+
     def _shadow_begin(self, n_total: int, sample) -> None:
-        """Allocate fresh state sized for ``n_total`` vectors, trained on the
-        device rows ``sample``."""
+        """Train and allocate fresh state sized for ``n_total`` vectors from
+        the (possibly subsampled) device rows ``sample``."""
         self._built_n = max(n_total, 1)
         self.state = self._fresh_state(max(n_total, 1), sample)
 
@@ -657,6 +736,31 @@ class BaseVectorIndex:
         """Insert captured device rows into the fresh state."""
         self._before_batches(len(ids))
         self._insert_batches(data, ids)
+
+    def _retrain_bg_peak_bytes(self, n_live: int, chunk_rows: int) -> int:
+        """Device bytes a background retrain adds beside the serving state
+        (0 = no concern)."""
+        return 0
+
+    def _state_hbm_bytes(self) -> int:
+        """Device bytes of the serving state."""
+        if self.state is None:
+            return 0
+        return sum(t.numel() * t.element_size() for t in vars(self.state).values()
+                   if isinstance(t, torch.Tensor))
+
+    def _adopt(self, shadow) -> None:
+        """Swap the shadow's structures in as the serving state (call under
+        the write lock; no device work)."""
+        for f in ("state", "_slot_ids", "_id_to_slot", "_built_n") + self._ADOPT_EXTRA:
+            setattr(self, f, getattr(shadow, f))
+        self._rebuild_wanted = None
+        self._struct_gen += 1
+
+    def warm_serving_shapes(self, shapes) -> int:
+        """The JAX package compiles the shadow's query program here before
+        the swap; PyTorch compiles nothing ahead, so nothing is warmed."""
+        return 0
 
     # -- search -----------------------------------------------------------------
 
@@ -683,23 +787,31 @@ class BaseVectorIndex:
         into the token's own pinned buffer on the device -> host stream. On
         IVF nothing here waits for the device; LSH reads two values back
         mid-query (its candidate width and its re-rank's last step). The
-        token holds the device tensors its copies read. Mutations between
-        submit and collect run on the current stream after the queued query,
-        so the token answers from the state as it was at submit."""
+        token holds the device tensors its copies read and the slot -> id
+        map the query was answered from. Mutations between submit and
+        collect run on the current stream after the queued query, so the
+        token answers from the state as it was at submit, and
+        :meth:`format_collect` names its slots with that map even when a
+        rebuild or a retrain's swap replaced the index's map meanwhile."""
         q = np.asarray(queries, dtype=np.float32)
         if q.ndim == 1:
             q = q[None, :]
         wire = torch.bfloat16 if self.options.query_wire_is_bf16() else torch.float32
         qt = self._ready(self._ship_rows(q, wire)).float()
         packed = _pack_results(*self._query_device(qt, k, exact))
-        return self._download(packed), q.shape[0], k
+        return self._download(packed), q.shape[0], k, self._slot_ids
 
     def search_collect(self, token):
         """Resolve a :meth:`search_submit` token into ``(dists [B, k], slots
         [B, k] int64, valid [B, k])``: one wait for its readback. Tokens may
         be collected in any order."""
-        handle, nq, k = token
+        handle, nq, k, _ = token
         return _unpack_results(self._fetch(handle), nq, k)
+
+    def format_collect(self, token):
+        """:meth:`search`-formatted results of a :meth:`search_submit`
+        token, its slots named by the slot -> id map it was answered from."""
+        return self._format_results(*self.search_collect(token), arena=token[3])
 
     def search_stream(self, batches, k: int, exact: bool = False):
         """Yields :meth:`search`-formatted results per input batch, keeping
@@ -710,16 +822,17 @@ class BaseVectorIndex:
         for batch in batches:
             tok = self.search_submit(batch, k, exact)
             if pending is not None:
-                yield self._format_results(*self.search_collect(pending))
+                yield self.format_collect(pending)
             pending = tok
         if pending is not None:
-            yield self._format_results(*self.search_collect(pending))
+            yield self.format_collect(pending)
 
-    def _format_results(self, dists, slots, valid):
+    def _format_results(self, dists, slots, valid, arena: SlotIdArena | None = None):
         """(dists, slots, valid) -> per-query [(id, distance), ...] with one
-        vectorised arena gather for the whole batch."""
+        vectorised gather of ``arena`` (the index's map by default) for the
+        whole batch."""
         B, k = dists.shape
-        flat = self._slot_ids.bulk_bytes(np.clip(slots, 0, None).ravel())
+        flat = (arena or self._slot_ids).bulk_bytes(np.clip(slots, 0, None).ravel())
         idl = np.frombuffer(flat, dtype="V16").tolist()
         dl = dists.tolist()
         if valid.all():
@@ -734,9 +847,17 @@ class BaseVectorIndex:
 
     def save(self, directory: str) -> None:
         """Snapshot to ``directory``: ``index.json`` + ``arrays.npz`` (fsync'd)."""
-        from zebra_tpu_torch.storage.snapshots import write_npz_streamed
+        self.write_capture(directory, self.snapshot_capture())
 
-        os.makedirs(directory, exist_ok=True)
+    def snapshot_capture(self, clone: bool = False) -> dict:
+        """A capture of the index for :meth:`write_capture`
+        (``zebra_tpu/index/base.py:989-1047``): the meta, the host slot -> id
+        map copied, and the state's tensors by reference, or with ``clone``
+        as device copies (queued on the current stream: take the capture
+        under at least the read lock, and the next in-place write runs after
+        the copies). A cloned capture can be written with no lock held. A
+        clone past ``_CLONE_HBM_BUDGET`` bytes is refused: ``cloned`` is
+        then False and the tensors are the live ones."""
         options = dataclasses.replace(self.options, rerank=self._given_rerank)
         meta = {
             "dim": self.dim,
@@ -749,10 +870,27 @@ class BaseVectorIndex:
             "snapshot_format": "npz",
             **self._meta_extra(),
         }
-        fsync_write(os.path.join(directory, "index.json"), json.dumps(meta).encode())
+        arrays, cloned = None, True
         if self.state is not None:
             arrays = {"slot_ids": self._slot_ids.to_array().copy(), **self._snapshot_arrays()}
-            write_npz_streamed(os.path.join(directory, "arrays.npz"), arrays)
+            if clone:
+                dev = {k: v for k, v in arrays.items() if isinstance(v, torch.Tensor)}
+                if sum(v.numel() * v.element_size() for v in dev.values()) <= _CLONE_HBM_BUDGET:
+                    arrays.update({k: v.clone() for k, v in dev.items()})
+                else:
+                    cloned = False
+        return {"meta": meta, "arrays": arrays, "cloned": cloned}
+
+    def write_capture(self, directory: str, cap: dict) -> None:
+        """Write a :meth:`snapshot_capture` to ``directory`` (fsync'd; the
+        arrays streamed in bounded chunks). Needs no lock for a cloned
+        capture; a fetch raising ``CaptureAborted`` leaves no arrays file."""
+        from zebra_tpu_torch.storage.snapshots import write_npz_streamed
+
+        os.makedirs(directory, exist_ok=True)
+        fsync_write(os.path.join(directory, "index.json"), json.dumps(cap["meta"]).encode())
+        if cap["arrays"] is not None:
+            write_npz_streamed(os.path.join(directory, "arrays.npz"), cap["arrays"])
 
     @classmethod
     def load(cls, directory: str, device=None):

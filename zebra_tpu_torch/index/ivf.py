@@ -238,32 +238,17 @@ def quantise_pair_host(x: np.ndarray, span: int = QUANT_SPAN):
 
 
 def quantise_pair_numpy(x: np.ndarray, span: int = QUANT_SPAN):
-    """The numpy path of :func:`quantise_pair_host` for hosts without a
-    toolchain: the JAX package's ``_quantise_pair_numpy`` (the f64 emulation
-    of the device path's FMA residual), run per ``span`` rows."""
+    """The fallback of :func:`quantise_pair_host` for hosts without a
+    toolchain: :func:`quantise_pair_device` on CPU tensors (the JAX
+    package's ``_quantise_pair_numpy``, bitwise), run per ``span`` rows."""
     x32 = np.ascontiguousarray(x, dtype=np.float32)
     n, d = x32.shape
-    v8 = np.empty((n, d), np.int8)
-    r8 = np.empty((n, d), np.int8)
-    scale = np.empty((n,), np.float32)
-    rscale = np.empty((n,), np.float32)
-    one = np.float32(1.0)
+    out = (np.empty((n, d), np.int8), np.empty((n, d), np.int8),
+           np.empty((n,), np.float32), np.empty((n,), np.float32))
     for s in range(0, n, span):
-        xs = x32[s : s + span]
-        absmax = np.max(np.abs(xs), axis=-1)
-        sc = np.where(absmax > 0, absmax * _INV127, one).astype(np.float32)
-        v = np.clip(np.rint(xs / sc[:, None]), -127, 127).astype(np.int8)
-        # x - v*scale with ONE f32 rounding (the device FMA): the f64 product
-        # and difference are exact, so the single cast is the fused rounding
-        res = (xs.astype(np.float64)
-               - v.astype(np.float64) * sc.astype(np.float64)[:, None]).astype(np.float32)
-        rabs = np.max(np.abs(res), axis=-1)
-        rs = np.where(rabs > 0, rabs * _INV127, one).astype(np.float32)
-        v8[s : s + span] = v
-        r8[s : s + span] = np.clip(np.rint(res / rs[:, None]), -127, 127).astype(np.int8)
-        scale[s : s + span] = sc
-        rscale[s : s + span] = rs
-    return v8, r8, scale, rscale
+        for dst, part in zip(out, quantise_pair_device(torch.from_numpy(x32[s : s + span]))):
+            dst[s : s + span] = part.numpy()
+    return out
 
 
 def _write_plan(slots: torch.Tensor):
@@ -294,24 +279,49 @@ def _put_rows(dst: torch.Tensor, plan, values: torch.Tensor) -> None:
     dst.index_copy_(0, target, torch.where(placed, rows, dst[target]))
 
 
+def quantise_pair_device(x32: torch.Tensor):
+    """The int8 + residual quantisation of :func:`quantise_pair_host` on the
+    rows' own device: ``(v8, r8, scale, rscale)``, bitwise the host mirror
+    and the JAX package's device branch (``zebra_tpu/index/ivf.py:299-323``).
+    The residual ``x - v8*scale`` takes one f32 rounding (the FMA the JAX
+    package's compiler contracts it into): the f64 product and difference
+    are exact, so the single cast back is that rounding."""
+    one = torch.ones((), dtype=torch.float32, device=x32.device)
+    absmax = x32.abs().amax(-1)
+    scale = torch.where(absmax > 0, absmax * float(_INV127), one)
+    v8 = torch.clamp(torch.round(x32 / scale[:, None]), -127, 127).to(torch.int8)
+    res = (x32.double() - v8.double() * scale.double()[:, None]).float()
+    rabs = res.abs().amax(-1)
+    rscale = torch.where(rabs > 0, rabs * float(_INV127), one)
+    r8 = torch.clamp(torch.round(res / rscale[:, None]), -127, 127).to(torch.int8)
+    return v8, r8, scale, rscale
+
+
 def insert(state: IVFState, x: torch.Tensor, spill: int = 4, metric: str = "sql2") -> torch.Tensor:
-    """Insert a batch of rows (f32, or bf16 from the half-width wire) into a
-    state without a residual slab, in place (``zebra_tpu/index/ivf.py:266-340``).
+    """Insert a batch of rows (f32, or bf16 from the half-width wire) in
+    place (``zebra_tpu/index/ivf.py:266-340``).
 
     An int8 slab stores the per-row symmetric quantisation, ``scale = absmax
     / 127`` (1 for an all-zero row) and codes ``round(x / scale)`` (half to
-    even) clipped to +-127; a bf16 / f32 slab stores the cast. Placement uses
-    the rows as given; ``norms`` hold the squared norm of the STORED value
-    (dequantised or rounded), so re-rank distances are exact w.r.t. the slab.
+    even) clipped to +-127; a residual-bearing state also stores the int8
+    quantisation of the error (:func:`quantise_pair_device`: a rebuild's
+    captured rows, a retrain's capture chunks); a bf16 / f32 slab stores the
+    cast. Placement uses the rows as given; ``norms`` hold the squared norm
+    of the STORED value (dequantised, reconstructed or rounded), so re-rank
+    distances are exact w.r.t. the slab.
 
     Returns slots ``[n]`` int64 (-1 = dropped: the spare was full too).
     """
-    if state.residual is not None:
-        raise ValueError("a residual-bearing state takes host-quantised rows (insert_quant)")
     x32 = x.float()
     slots, counts, dropped = _place_rows(state, x32, spill, metric)
     plan = _write_plan(slots)
-    if state.vectors.dtype == torch.int8:
+    if state.residual is not None:
+        xd, r8, scale, rscale = quantise_pair_device(x32)
+        xs32 = xd.float() * scale[:, None] + r8.float() * rscale[:, None]
+        _put_rows(state.scales, plan, scale)
+        _put_rows(state.residual, plan, r8)
+        _put_rows(state.rscales, plan, rscale)
+    elif state.vectors.dtype == torch.int8:
         absmax = x32.abs().amax(-1)
         scale = torch.where(absmax > 0, absmax * float(_INV127), torch.ones_like(absmax))
         xd = torch.clamp(torch.round(x32 / scale[:, None]), -127, 127).to(torch.int8)

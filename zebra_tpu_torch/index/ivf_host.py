@@ -19,8 +19,17 @@ quantised on the host by the native kernel (``native/zebra_quant.cpp``, the
 numpy emulation where no toolchain built it), shipped through the pinned
 ring, logged while its copy is in flight, and inserted without a host sync
 (``ivf._write_plan``). The cold build stages an HBM-budgeted window of spans
-before it trains. The rebuild/compaction/retrain policy is not ported yet
-(ROADMAP.md queue 1, item 8).
+before it trains.
+
+The rebuild policy (``zebra_tpu/index/ivf_host.py:693-823``): after every
+mutation :meth:`IVFIndex._rebuild_reason` names, in this order,
+"spare-critical" (the spare nearly full, or grown past 4x its sizing),
+"growth" (live rows past 4x the built size), "tombstones" (above half the
+allocated slots) and "spare-pressure". A bare index rebuilds inline when the
+transient fits ``_STAGE_HBM_BUDGET``; under the Database facade the reason
+goes to its background retrain, which trains the shadow with
+``kmeans_paced`` and ingests captured rows through ``ivf.insert`` (on the
+refined tier its device quantisation of the pair).
 """
 
 from __future__ import annotations
@@ -34,7 +43,7 @@ from zebra_tpu_torch.config import IndexOptions
 from zebra_tpu_torch.index import ivf as V
 from zebra_tpu_torch.index.base import BATCH, BaseVectorIndex, Staged
 from zebra_tpu_torch.ops import distances as D
-from zebra_tpu_torch.ops.kmeans import kmeans
+from zebra_tpu_torch.ops.kmeans import kmeans, kmeans_paced
 from zebra_tpu_torch.profiling import timed
 from zebra_tpu_torch.utils import next_pow2
 
@@ -45,6 +54,10 @@ logger = logging.getLogger(__name__)
 #: packages size a database identically; at 1M x 768 it binds neither: the
 #: window holds every span)
 _STAGE_HBM_BUDGET = 12 << 30
+#: retrain when live vectors outgrow the built size by this factor
+_REBUILD_GROWTH = 4.0
+#: compact when tombstones exceed this fraction of allocated slots
+_COMPACT_TOMBSTONES = 0.5
 #: spare-growth retries per batch before giving up
 _MAX_GROWS = 8
 
@@ -122,9 +135,15 @@ class IVFIndex(BaseVectorIndex):
         if self._given_rerank in ("pallas", "pallas2"):
             self._dev_dim = -(-self.dim // 128) * 128
         self.state: V.IVFState | None = None
-        #: host mirrors of slot occupancy (a non-empty spare costs no sync)
+        #: host mirrors of slot occupancy (a non-empty spare costs no sync;
+        #: the rebuild policy reads no device count)
         self._used_slots = 0
         self._spare_used = 0
+        #: True on a background retrain's shadow: k-means runs one pass at a
+        #: time (``kmeans_paced``), so queries queued meanwhile wait ~a pass
+        self._paced_train = False
+        #: an inline rebuild was refused for its memory (warned once)
+        self._rebuild_skip_warned = False
 
     @property
     def _quant_wire(self) -> bool:
@@ -167,7 +186,7 @@ class IVFIndex(BaseVectorIndex):
                 host if idx is None else host[idx])).to(self.device)
         # the [chunk, K] distance tile stays ~1 GB
         chunk = 65536 if k <= 32768 else max(2048, (1 << 28) // k)
-        cents, _ = kmeans(
+        cents, _ = (kmeans_paced if self._paced_train else kmeans)(
             sample, sample_n, k, iters=self.options.kmeans_iters, chunk=chunk,
             balance_rounds=self.options.kmeans_balance_rounds, generator=gen,
         )
@@ -329,6 +348,94 @@ class IVFIndex(BaseVectorIndex):
         super().clear()
         self._used_slots = 0
         self._spare_used = 0
+
+    # -- rebuild policy -----------------------------------------------------------------
+
+    _ADOPT_EXTRA = ("_used_slots", "_spare_used")
+
+    def _rebuilt_slab_bytes(self, n_live: int) -> tuple[int, int]:
+        """(bytes per captured row, bytes of the slab a rebuild sizes for
+        ``n_live`` rows): a refined int8 capture is the f32 reconstruction,
+        a plain int8 one bf16, the others the slab's type."""
+        d = self._dev_dim
+        item = self.dtype.itemsize
+        refined = self.state is not None and self.state.residual is not None
+        copy_item = (4 if refined else 2) if self.dtype == torch.int8 else item
+        n = max(n_live, 1)
+        k = resolved_clusters(self.options, n)
+        slots = (k * resolved_capacity(self.options, n, k, dim=d)
+                 + resolved_spare(self.options, n))
+        new_slab = slots * (d * item + 9) + k * d * 4
+        if refined:
+            new_slab += slots * (d + 4)
+        return d * copy_item, new_slab
+
+    def _rebuild_peak_bytes(self, n_live: int) -> int:
+        """Worst-case device transient of an inline :meth:`rebuild` at
+        ``n_live`` rows: max(old slab + live copy, live copy + new slab)."""
+        row, new_slab = self._rebuilt_slab_bytes(n_live)
+        live_copy = n_live * row
+        st = self.state
+        old_slab = sum(t.numel() * t.element_size()
+                       for t in (st.vectors, st.norms, st.residual, st.rscales) if t is not None)
+        return max(old_slab + live_copy, live_copy + new_slab)
+
+    def _rebuild_reason(self) -> str | None:
+        """The JAX package's four tiers, first match wins: "spare-critical"
+        (the spare over 90% full, or grown past 4x its sizing for the live
+        rows — the facade then blocks the mutating call until the retrain
+        lands), "growth" (live rows past 4x ``_built_n``), "tombstones"
+        (over half the allocated slots dead) and "spare-pressure" (the
+        spare over 3/4 full, or holding more than max(n/8, 4096) rows)."""
+        n_live = len(self._id_to_slot)
+        if n_live == 0 or self.state is None:
+            return None
+        spare_cap = self.state.spare_capacity
+        if (self._spare_used > 0.9 * max(spare_cap, 1)
+                or spare_cap > 4 * resolved_spare(self.options, n_live)):
+            return "spare-critical"
+        if n_live > _REBUILD_GROWTH * max(self._built_n, 1):
+            return "growth"
+        used = self._used_slots
+        if used - n_live > _COMPACT_TOMBSTONES * max(used, 1):
+            return "tombstones"
+        if (self._spare_used > 0.75 * max(spare_cap, 1)
+                or self._spare_used > max(0.125 * n_live, 4096)):
+            return "spare-pressure"
+        return None
+
+    def _rebuild_admissible(self, reason: str) -> bool:
+        """An inline rebuild whose transient would not fit
+        ``_STAGE_HBM_BUDGET`` is skipped (queries stay correct: tombstones
+        are masked and the spare is scanned); warned once per episode."""
+        n_live = len(self._id_to_slot)
+        peak = self._rebuild_peak_bytes(n_live)
+        if peak > _STAGE_HBM_BUDGET:
+            if not self._rebuild_skip_warned:
+                logger.warning("ivf: skipping auto-rebuild at %d live rows — the rebuild "
+                               "transient (%.1f GB) exceeds the budget (%.1f GB)",
+                               n_live, peak / 2**30, _STAGE_HBM_BUDGET / 2**30)
+                self._rebuild_skip_warned = True
+            return False
+        self._rebuild_skip_warned = False
+        return True
+
+    def _pre_rebuild(self, reason: str | None) -> None:
+        logger.info("ivf rebuild (%s): %d live vectors", reason, len(self._id_to_slot))
+
+    def _reset_alloc_mirrors(self) -> None:
+        self._used_slots = 0
+        self._spare_used = 0
+
+    def _train_sample_target(self, n: int) -> int:
+        k = resolved_clusters(self.options, max(n, 1))
+        return min(n, max(self.options.kmeans_sample, 4 * k))
+
+    def _retrain_bg_peak_bytes(self, n_live: int, chunk_rows: int) -> int:
+        """Device bytes a background retrain adds beside the serving state:
+        the new slab, one capture chunk and the k-means sample."""
+        row, new_slab = self._rebuilt_slab_bytes(n_live)
+        return new_slab + (chunk_rows + self._train_sample_target(n_live)) * row
 
     # -- delete / search ----------------------------------------------------------------
 

@@ -5,10 +5,12 @@ What is LSH-specific on top of :mod:`zebra_tpu_torch.index.base`:
 hyperplane sampling, the bump-allocated slab with a host mirror of the next
 free slot (no device read per insert), the build-time hot-bucket estimate
 that deepens buckets before allocation, the overflow / growth / tombstone
-rebuild policy, and the stored width padded for an explicit
-``rerank="pallas"`` (the JAX package's TPU DMA tiling — kept so that
-snapshots open in both packages). The background retrain of the JAX package
-is not ported (ROADMAP.md queue 1, item 8): rebuilds run inline.
+rebuild policy with its background-retrain hooks (a bare index rebuilds
+inline; under the Database facade the rebuild leaves the write lock for the
+facade's shadow retrain, carrying the doubled bucket depth of an
+"overflow-capacity" reason onto the shadow), and the stored width padded for
+an explicit ``rerank="pallas"`` (the JAX package's TPU DMA tiling — kept so
+that snapshots open in both packages).
 
 Random draws: the numpy ``_rng`` sequence is the JAX package's (one seed per
 plane sample), and each seed feeds :func:`plane_draws`, which the parity
@@ -212,6 +214,21 @@ class LSHIndex(BaseVectorIndex):
         logger.info("rebuild (%s): %d live vectors (used=%d, overflow=%s, cap_boost=%d)",
                     reason, len(self._id_to_slot), self._next_slot,
                     int(self.state.overflow) if self.state is not None else 0, self._cap_boost)
+
+    _ADOPT_EXTRA = ("_next_slot", "_cap_boost")
+
+    def _prepare_shadow(self, shadow, reason: str | None) -> None:
+        shadow._cap_boost = self._cap_boost * (2 if reason == "overflow-capacity" else 1)
+
+    def _retrain_bg_peak_bytes(self, n_live: int, chunk_rows: int) -> int:
+        """Device bytes a background retrain adds beside the serving state:
+        the shadow's slab and bucket tables plus one f32 capture chunk."""
+        cap = self.options.resolved_bucket_capacity() * self._cap_boost
+        bits = self.options.resolved_bits(n_live, capacity=cap)
+        slab = next_pow2(max(self.options.slab_capacity, 2 * n_live, _MIN_SLAB))
+        slab_b = slab * (self._dev_dim * self.dtype.itemsize + 5)  # vectors + norms + valid
+        tables_b = max(self.options.num_tables, 1) * (1 << bits) * (cap + 1) * 4
+        return slab_b + tables_b + chunk_rows * self._dev_dim * 4
 
     def _reset_alloc_mirrors(self) -> None:
         self._next_slot = 0

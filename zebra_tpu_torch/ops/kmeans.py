@@ -1,5 +1,6 @@
 """k-means (Lloyd's) for IVF coarse quantisation (port of
-``zebra_tpu/ops/kmeans.py``: ``assign_clusters`` and ``kmeans``).
+``zebra_tpu/ops/kmeans.py``: ``assign_clusters``, ``kmeans`` and
+``kmeans_paced``).
 
 JAX draws its three random index sets inside the jit from one key; here they
 are explicit arguments (``init_idx``, ``reseed_idx``, ``split_idx``) so tests
@@ -39,6 +40,65 @@ def kmeans_draws(n: int, n_valid: int, k: int, iters: int, balance_rounds: int,
     return draw((k,)), draw((total, k)), draw((max(balance_rounds, 1), m))
 
 
+def _lloyd_pass(data: torch.Tensor, n_valid: int, cents: torch.Tensor, reseed_rows: torch.Tensor,
+                chunk: int):
+    """One Lloyd assignment + update pass over the ``n_valid`` leading rows
+    (chunks cast to f32 one at a time); empty clusters restart at their
+    reseed row."""
+    k, dim = cents.shape
+    dev = data.device
+    cn2 = (cents * cents).sum(-1)
+    sums = torch.zeros((k, dim), dtype=torch.float32, device=dev)
+    counts = torch.zeros((k,), dtype=torch.int32, device=dev)
+    for s in range(0, n_valid, chunk):
+        xc = data[s : min(s + chunk, n_valid)].float()
+        a = torch.argmin(cn2[None, :] - 2.0 * (xc @ cents.T), dim=1)
+        sums.index_add_(0, a, xc)
+        counts.index_add_(0, a, torch.ones_like(a, dtype=torch.int32))
+    mean = sums / torch.clamp(counts, min=1)[:, None]
+    # empty clusters restart at a random data point (Lloyd repair)
+    return torch.where((counts > 0)[:, None], mean, data[reseed_rows].float()), counts
+
+
+def _balance_step(data, n_valid: int, cents, counts, split_rows, reseed_pair, chunk: int, m: int):
+    """One split-heavy balance round: the ``m`` lightest centroids move next
+    to the ``m`` heaviest (a perturbed copy), then two settling passes."""
+    k = cents.shape[0]
+    order = torch.argsort(-counts, stable=True)
+    heavy, light = order[:m], order[k - m :]
+    cents = cents.clone()
+    cents[light] = 0.99 * cents[heavy] + 0.01 * data[split_rows].float()
+    cents, counts = _lloyd_pass(data, n_valid, cents, reseed_pair[0], chunk)
+    return _lloyd_pass(data, n_valid, cents, reseed_pair[1], chunk)
+
+
+def _lloyd(data, n_valid, k, iters, chunk, balance_rounds, generator, init_idx, reseed_idx,
+           split_idx, pacer):
+    """The shared body of :func:`kmeans` and :func:`kmeans_paced`:
+    ``pacer(counts)`` runs after each Lloyd pass and each balance round."""
+    n = data.shape[0]
+    dev = data.device
+    n_valid = int(n_valid)
+    if init_idx is None or reseed_idx is None or split_idx is None:
+        init_idx, reseed_idx, split_idx = kmeans_draws(
+            n, n_valid, k, iters, balance_rounds, generator, dev
+        )
+    init_idx, reseed_idx, split_idx = (
+        torch.as_tensor(t, device=dev).long() for t in (init_idx, reseed_idx, split_idx)
+    )
+    cents = data[init_idx].float()
+    counts = torch.zeros((k,), dtype=torch.int32, device=dev)
+    for it in range(iters):
+        cents, counts = _lloyd_pass(data, n_valid, cents, reseed_idx[it], chunk)
+        pacer(counts)
+    m = max(k // 8, 1)
+    for r in range(balance_rounds):
+        pair = reseed_idx[iters + 2 * r : iters + 2 * r + 2]
+        cents, counts = _balance_step(data, n_valid, cents, counts, split_idx[r], pair, chunk, m)
+        pacer(counts)
+    return cents, counts
+
+
 def kmeans(
     data: torch.Tensor,
     n_valid: int,
@@ -66,44 +126,35 @@ def kmeans(
     Returns ``(centroids [k, D] f32, counts [k] int32)`` — counts of the last
     assignment pass.
     """
-    n, dim = data.shape
-    dev = data.device
-    n_valid = int(n_valid)
-    if init_idx is None or reseed_idx is None or split_idx is None:
-        init_idx, reseed_idx, split_idx = kmeans_draws(
-            n, n_valid, k, iters, balance_rounds, generator, dev
-        )
-    init_idx, reseed_idx, split_idx = (
-        torch.as_tensor(t, device=dev).long() for t in (init_idx, reseed_idx, split_idx)
-    )
-    live = data[:n_valid]
+    return _lloyd(data, n_valid, k, iters, chunk, balance_rounds, generator, init_idx,
+                  reseed_idx, split_idx, lambda counts: None)
 
-    def rows(idx):
-        return data[idx].float()
 
-    def lloyd(cents, reseed_rows):
-        cn2 = (cents * cents).sum(-1)
-        sums = torch.zeros((k, dim), dtype=torch.float32, device=dev)
-        counts = torch.zeros((k,), dtype=torch.int32, device=dev)
-        for s in range(0, n_valid, chunk):
-            xc = live[s : s + chunk].float()
-            a = torch.argmin(cn2[None, :] - 2.0 * (xc @ cents.T), dim=1)
-            sums.index_add_(0, a, xc)
-            counts.index_add_(0, a, torch.ones_like(a, dtype=torch.int32))
-        mean = sums / torch.clamp(counts, min=1)[:, None]
-        # empty clusters restart at a random data point (Lloyd repair)
-        return torch.where((counts > 0)[:, None], mean, rows(reseed_rows)), counts
+def _pace(counts: torch.Tensor) -> None:
+    """Wait for the device work queued so far on the current stream (a
+    no-op for CPU tensors)."""
+    if counts.is_cuda:
+        torch.cuda.current_stream(counts.device).synchronize()
 
-    cents = rows(init_idx)
-    counts = torch.zeros((k,), dtype=torch.int32, device=dev)
-    for it in range(iters):
-        cents, counts = lloyd(cents, reseed_idx[it])
-    m = max(k // 8, 1)
-    for r in range(balance_rounds):
-        order = torch.argsort(-counts, stable=True)
-        heavy, light = order[:m], order[k - m :]
-        cents = cents.clone()
-        cents[light] = 0.99 * cents[heavy] + 0.01 * rows(split_idx[r])
-        cents, counts = lloyd(cents, reseed_idx[iters + 2 * r])
-        cents, counts = lloyd(cents, reseed_idx[iters + 2 * r + 1])
-    return cents, counts
+
+def kmeans_paced(
+    data: torch.Tensor,
+    n_valid: int,
+    k: int,
+    iters: int = 8,
+    chunk: int = 65536,
+    balance_rounds: int = 2,
+    generator: torch.Generator | None = None,
+    init_idx: torch.Tensor | None = None,
+    reseed_idx: torch.Tensor | None = None,
+    split_idx: torch.Tensor | None = None,
+    pacer=None,
+):
+    """:func:`kmeans`, queued one pass at a time (``zebra_tpu/ops/kmeans.py:159``):
+    after each Lloyd pass and each balance round ``pacer(counts)`` (default:
+    wait for the current stream) drains what was queued, so a query queued
+    on the same stream by another thread waits at most about one pass, not
+    the whole training. The background retrain's shadow trains with it; the
+    same draws give the same passes as :func:`kmeans`."""
+    return _lloyd(data, n_valid, k, iters, chunk, balance_rounds, generator, init_idx,
+                  reseed_idx, split_idx, pacer or _pace)

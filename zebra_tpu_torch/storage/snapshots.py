@@ -5,8 +5,9 @@ ZIP_STORED archive of ``.npy`` members, readable by plain ``np.load``) written
 in bounded chunks, so both packages read each other's snapshots. Torch tensors
 (CPU or CUDA) are fetched chunk by chunk, so the slab never materialises
 host-side whole; bfloat16 tensors are stored as raw uint16 bit patterns (the
-JAX package's slab contract). The chunked fuzzy capture of the background
-log fold is not ported (ROADMAP.md queue 1, background workers).
+JAX package's slab contract). A :class:`ChunkedSource` member is produced
+chunk by chunk by a callback (the background log fold's fuzzy capture,
+``Database._fold_chunked_capture``), in the same bytes on disk.
 """
 
 from __future__ import annotations
@@ -20,6 +21,24 @@ import torch
 
 #: per-chunk byte budget for streamed members (device fetch + zip write)
 CHUNK_BYTES = 64 << 20
+
+
+class CaptureAborted(RuntimeError):
+    """Raised by a :class:`ChunkedSource` fetch when the capture's premise
+    broke mid-stream (a rebuild or retrain swap, an explicit save, a slab
+    reallocation): the writer unwinds and the caller discards the file."""
+
+
+class ChunkedSource:
+    """Snapshot member whose rows come chunk by chunk from a callback:
+    ``fetch(s, e) -> np.ndarray`` gives rows ``[s:e)`` in the encoded dtype
+    (``dtype``; a bf16 slab's chunks as uint16 bits) and may raise
+    :class:`CaptureAborted`."""
+
+    def __init__(self, shape: tuple, dtype, fetch):
+        self.shape = tuple(int(s) for s in shape)
+        self.dtype = np.dtype(dtype)
+        self.fetch = fetch
 
 
 def _to_np(t) -> np.ndarray:
@@ -50,15 +69,33 @@ def slab_from_np(arr, device="cpu", dtype=None) -> torch.Tensor:
 
 def _member_meta(arr):
     """(shape, np dtype of the ENCODED stream) for any input array."""
+    if isinstance(arr, ChunkedSource):
+        return arr.shape, arr.dtype
     if isinstance(arr, torch.Tensor):
         return tuple(arr.shape), _to_np(arr.reshape(-1)[:0]).dtype
     a = _to_np(arr)
     return tuple(a.shape), a.dtype
 
 
+def _iter_source_chunks(src: ChunkedSource):
+    """Yield the chunks of a :class:`ChunkedSource` in C order, each <=
+    CHUNK_BYTES (a 0-d member in one fetch)."""
+    shape, dtype = src.shape, src.dtype
+    if len(shape) == 0:
+        yield _to_np(src.fetch(0, 1)).reshape(())
+        return
+    row_bytes = dtype.itemsize * int(np.prod(shape[1:], dtype=np.int64))
+    rows = max(1, CHUNK_BYTES // max(row_bytes, 1))
+    for s in range(0, shape[0], rows):
+        yield np.ascontiguousarray(_to_np(src.fetch(s, min(shape[0], s + rows))))
+
+
 def _iter_chunks(arr, shape, dtype):
     """Yield C-contiguous np chunks of ``arr`` along axis 0 (whole array for
     0-d), each <= CHUNK_BYTES; tensors fetch per chunk."""
+    if isinstance(arr, ChunkedSource):
+        yield from _iter_source_chunks(arr)
+        return
     if len(shape) == 0:
         yield _to_np(arr).reshape(())
         return
@@ -145,10 +182,27 @@ def open_snapshot_arrays(directory: str, meta: dict):
 
 
 def write_npz_streamed(path: str, arrays: dict, fsync: bool = True) -> None:
-    """Write ``arrays`` (np arrays, scalars or torch tensors) as an
-    uncompressed ``.npz`` with bounded memory; atomic (tmp file, fsync,
-    rename, directory fsync)."""
+    """Write ``arrays`` (np arrays, scalars, torch tensors or
+    :class:`ChunkedSource` members) as an uncompressed ``.npz`` with bounded
+    memory; atomic (tmp file, fsync, rename, directory fsync). A fetch that
+    raises leaves no file behind."""
     tmp = f"{path}.tmp.{os.getpid()}"
+    try:
+        _write_members(tmp, arrays, fsync)
+    except BaseException:
+        with contextlib.suppress(FileNotFoundError):
+            os.remove(tmp)
+        raise
+    os.replace(tmp, path)
+    if fsync:
+        dfd = os.open(os.path.dirname(os.path.abspath(path)) or ".", os.O_RDONLY)
+        try:
+            os.fsync(dfd)
+        finally:
+            os.close(dfd)
+
+
+def _write_members(tmp: str, arrays: dict, fsync: bool) -> None:
     with open(tmp, "wb") as f:
         with zipfile.ZipFile(f, "w", zipfile.ZIP_STORED, allowZip64=True) as zf:
             for name, arr in arrays.items():
@@ -170,10 +224,3 @@ def write_npz_streamed(path: str, arrays: dict, fsync: bool = True) -> None:
         f.flush()
         if fsync:
             os.fsync(f.fileno())
-    os.replace(tmp, path)
-    if fsync:
-        dfd = os.open(os.path.dirname(os.path.abspath(path)) or ".", os.O_RDONLY)
-        try:
-            os.fsync(dfd)
-        finally:
-            os.close(dfd)

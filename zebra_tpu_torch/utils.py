@@ -41,6 +41,33 @@ def device_sync() -> None:
         torch.cuda.synchronize()
 
 
+#: the device -> host rate of this process, MB/s, once measured
+_READBACK_MBS: list[float] = []
+
+
+def device_readback_mbs(measure: bool = True) -> float | None:
+    """Device -> host MB/s, measured once per process and cached (the JAX
+    package's ``utils.device_readback_mbs``): the copy of a 64 MiB tensor on
+    the CUDA card into pageable host memory, timed after a warm-up copy; a
+    host-to-host copy where there is no card. ``measure=False`` never runs
+    the probe and returns None while unmeasured (the fold policy asks under
+    the write lock; the fold thread measures)."""
+    if not _READBACK_MBS:
+        if not measure:
+            return None
+        import torch
+
+        dev = "cuda" if torch.cuda.is_available() else "cpu"
+        src = torch.ones(16 << 20, dtype=torch.float32, device=dev)
+        src.cpu() if dev == "cuda" else src.clone()  # warm any lazy init
+        device_sync()
+        t0 = time.perf_counter()
+        out = src.cpu() if dev == "cuda" else src.clone()
+        elapsed = time.perf_counter() - t0
+        _READBACK_MBS.append(out.numel() * 4 / 1e6 / max(elapsed, 1e-9))
+    return max(_READBACK_MBS[0], 0.1)
+
+
 class Stopwatch:
     """Wall-clock timer for the CLI's reports."""
 
