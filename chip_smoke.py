@@ -100,7 +100,7 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    probes, as phase 4;
 12. the text document path: ``defaults.text_db`` (384 dimensions, sql2,
    BGE-small-en-v1.5 at its published widths on the card, f32 with TF32
-   off; IVF at the library defaults) on 262,144 synthetic documents of 8-60
+   off; IVF at the library defaults) on 65,536 synthetic documents of 8-60
    words from a 30,000-word vocabulary plus 4,096 held-out queries (one
    seeded generator): ``model_status()``, the native store and the packed
    backend; the card's tower against the CPU tower with the same weights on
@@ -120,14 +120,18 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    rank-1 row's and the top-1 of the per-query form, the cluster form, the
    plain version and the exact scan (each a duplicate, an f64 tie, a row
    spilled out of its nearest cells, or its own cell dropped by stage 1 of
-   probe selection as ``stage1_witness`` recomputes it exactly); the CLI (``python -m zebra_tpu_torch.cli`` text insert, query,
-   stats, clear in subprocesses) and the verify skill's ``hash-64`` drive;
+   probe selection as ``stage1_witness`` recomputes it exactly); the CLI
+   (``python -m zebra_tpu_torch.cli`` text insert and query in subprocesses,
+   stats and clear through its ``main`` here) and the verify skill's
+   ``hash-64`` drive;
    then the facade's top-10 of every held-out query against kernel 1's
    plain version on the same index and probes (differing ranks f64-verified
    ties), recall@10 against the exact scan at P=2, 4 and 8 (printed, no
    guard: random-init text embeddings are crowded), and, on the path's own
    probes at B=1024 and 16384, both forms of kernel 1 against the plain
-   version and in turns beside the bound, as phase 4. Nothing is cut.
+   version and in turns beside the bound, as phase 4. Cut (the run's
+   time): 65,536 documents, where it once inserted 262,144, and the CLI's
+   stats and clear in this process, not in two more processes.
 13. a growing database at the library defaults (``DatabaseConfig(dim=768)``,
    durability "full"): the same 1M rows in 16 ``insert_vectors`` calls of
    62,500; after each call the reason the index wants, whether a retrain
@@ -146,6 +150,38 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    (same top-10 of 1024 held-out queries), and an explicit
    ``index.rebuild()`` (every row kept, the exact top-10 unchanged, a cold
    build's K, recall and self-retrieval). Nothing is cut.
+14. the flat tier and the elementwise metrics on phase 4's rows: the exact
+   tier (``IndexOptions.tier("exact")``: flat, an f32 slab) through the
+   facade (a durable insert of 1M rows; ``search_arrays`` top-10 of 1024
+   held-out queries held to an f64 scan, every rank within TIE_TOL, so
+   every differing id an f64 tie; its device time beside its bound;
+   ``exact_precision="default"``'s time and agreement; self-retrieval,
+   removes, save and reopen); the nine elementwise metrics through
+   ``ops.scan.exact_scan`` on the same slab for 64 queries, each held to
+   an f64 scan and timed beside its bound; IVF at the defaults with
+   ``metric="manhattan"`` (recall@10 against ``ivf.brute_force``,
+   self-retrieval, kernel 1 never launched); LSH with ``metric="l3"`` on
+   65,536 rows, the card's top-10 against the CPU's on the same saved
+   index;
+15. the image and audio document paths: which media libraries the machine
+   has (Pillow required); 16,384 + 1,024 seeded synthetic JPEGs through
+   ``defaults.image_db``, 8,192 + 512 seeded 2 s clips (WAV, 512 FLAC twins
+   by ``tests/flac_encoder.py``) and 1,024 + 64 seeded clips that fill
+   the tower's 30 s window through ``defaults.audio_db`` (ViT-base/16
+   ``embeddings_mean`` on the card, IVF at the defaults), each held as
+   phase 12 holds the text path (the card's tower against the CPU's,
+   batch invariance, the insert's stages, ``query_documents``,
+   self-retrieval, removes, ``deduplicate`` of planted copies, reopen, the
+   stored rows at once, the facade against kernel 1's plain version, both
+   forms on the path's probes). The 2 s clips crowd within ~1e-5 of each
+   other, so their self-retrieval and parity are printed as not counted
+   where their queries probe under MIN_PROBED_SHARE of the cells; the 30 s
+   clips must reach it. Also the spectrogram card vs CPU and every FLAC
+   twin bitwise its WAV clip; the
+   full encoder registered as a custom model (2,048 images; the forward of
+   a padded batch of 32 beside its f32 bound; card vs CPU); the CLI's
+   ``image insert``, ``image query --preview`` and ``audio query --play``
+   in this process.
 
 Each facade path waits for its background retrain and log fold before it
 times anything and prints the waits (``settle``).
@@ -160,8 +196,9 @@ the card's peak rate for their type, both counted from the timed inputs.
 A line ``pipeline: {...}`` holds each path's insert stage table, stream
 QPS, submit timeline and dedup time (and the text path's stage table,
 rates, forward time and recall). The second-to-last line is the kernels'
-JSON record (every kernel carries its ``forms``; kernel 1 has a second
-entry for the text path at D=384, sql2), the last line
+JSON record (every kernel carries its ``forms``; kernel 1 has further
+entries for the text path at D=384, sql2, and for the image path and the
+two audio databases), the last line
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
 
@@ -210,8 +247,9 @@ DUP_ROWS = slice(200_000, 201_000)
 #: times the stream phases send the held-out batch of 16384
 STREAM_REPEATS = 4
 #: phase 12: synthetic documents, held-out queries, the vocabulary they are
-#: drawn from and their length in words
-TEXT_DOCS = 262_144
+#: drawn from and their length in words (the documents cut from 262,144 to
+#: keep the whole run near 900 s once phases 14 and 15 joined it)
+TEXT_DOCS = 65_536
 TEXT_QUERIES = 4_096
 TEXT_VOCAB = 30_000
 TEXT_WORDS = (8, 60)
@@ -238,6 +276,47 @@ GROWTH_COLD_TOL = 0.08
 GROWTH_JAX = {"live": 187_500, "recall": 0.88349609375, "fresh": 0.8779296875,
               "self": 0.9072265625}
 GROWTH_JAX_TOL = 0.06
+#: phase 14: held-out queries of the exact tier, of each elementwise scan and
+#: of the IVF manhattan recall; rows of the LSH l3 case
+FLAT_QUERIES = 1_024
+METRIC_QUERIES = 64
+IVF_METRIC_QUERIES = 256
+LSH_METRIC_ROWS = 65_536
+ELEMENTWISE = ("chebyshev", "canberra", "braycurtis", "manhattan", "l3", "l4", "hamming",
+               "minkowski", "p_norm")
+#: f32 operations an element of each elementwise metric does (its ops bound):
+#: the difference, its magnitude and the reduction, plus the metric's own
+ELEMENT_OPS = {"chebyshev": 3, "canberra": 8, "braycurtis": 5, "manhattan": 3, "l3": 5,
+               "l4": 5, "hamming": 12, "minkowski": 4, "p_norm": 4}
+#: phase 15: synthetic images inserted and held out, clips inserted and held
+#: out (2 s at 16 kHz), FLAC twins of the first clips, clips that fill the
+#: tower's 30 s window inserted and held out, images of the encoder
+#: database; the card's towers against the CPU's, the spectrogram likewise
+IMAGE_DOCS = 16_384
+IMAGE_QUERIES = 1_024
+AUDIO_DOCS = 8_192
+AUDIO_QUERIES = 512
+AUDIO_RATE = 16_000
+AUDIO_SAMPLES = 32_000
+AUDIO_FLAC = 512
+WIDE_DOCS = 1_024
+WIDE_QUERIES = 64
+WIDE_SAMPLES = 480_000
+ENCODER_DOCS = 2_048
+MEDIA_TOWER_ATOL = 1e-4
+SPECTROGRAM_ATOL = 1e-5
+#: an audio database's self-retrieval and parity count only where the
+#: self-retrieval queries probe at least this share of its cells: 2 s clips
+#: in the 30 s window through the random-init tower all embed within ~1e-5
+#: of each other (cosine) and probe a handful of cells, where every answer
+#: is an f64 tie of every other and no check of them can fail
+MIN_PROBED_SHARE = 0.25
+#: documents phase 15 removes, and those it inserts again as exact copies
+#: (the 30 s clips: WIDE_*)
+MEDIA_REMOVE = slice(1000, 1256)
+MEDIA_DUP_ROWS = slice(5000, 5256)
+WIDE_REMOVE = slice(100, 164)
+WIDE_DUP_ROWS = slice(500, 564)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -994,13 +1073,17 @@ def main_path(torch, zt, V, tmp, base, queries, cfg, tag, counter):
     return launches, db, ids, approx_rows, launches_by_form, rec
 
 
-def probe_selection_report(torch, V, st, qt, P, metric, tag):
+def probe_selection_report(torch, V, st, qt, P, metric, tag, crowded=False):
     """Probe selection's stage 1 on the tensor cores (one bf16 GEMM with an
     f32 accumulator) against its plain version (the bf16 operands multiplied
     in f32 on the CUDA cores), both followed by the same f32 stage 2: the
     two timed in turns (new, plain, plain, new), the share of the B*P probes
     they agree on (held to MIN_PROBE_AGREEMENT) and each one's agreement
-    with the exact f32 probes (printed). Returns the new selection's ms."""
+    with the exact f32 probes (printed). ``crowded`` (the audio databases,
+    whose embeddings crowd together): below MIN_PROBE_AGREEMENT, every cell
+    that one stage 1 keeps and the other drops must instead score, exactly
+    on the bf16-rounded operands (``stage1_scores``), within TIE_TOL of the
+    2P-th best. Returns the new selection's ms."""
     def sel(emulate):
         cand = V.probe_candidates(st, qt, 2 * P, metric, emulate=emulate)
         return V.rescore_probes(st, qt, cand, P, metric)
@@ -1013,23 +1096,66 @@ def probe_selection_report(torch, V, st, qt, P, metric, tag):
         return float((a[:, :, None] == b[:, None, :]).any(-1).float().mean())
 
     a_plain, a_new, a_old = agree(new, plain), agree(new, exact), agree(plain, exact)
+    ties = ""
+    if crowded and a_plain < MIN_PROBE_AGREEMENT:
+        n_diff, gap = stage1_ties(torch, V, st, qt, P, metric)
+        ties = (f"; audio (crowded), below {MIN_PROBE_AGREEMENT}: the stage-1 candidate sets of "
+                f"{n_diff} queries differ, every differing cell scored in f64 within {gap:.3g} "
+                f"(<= {TIE_TOL}) of the 2P-th best: f32 summation-order ties")
+        check(gap <= TIE_TOL, f"stage 1 on the tensor cores picks cells {gap} from its plain "
+              f"version's (> {TIE_TOL}): not a tie")
     print(f"{tag}probe selection, B={qt.shape[0]} P={P}, in turns tensor-core/plain/plain/"
           f"tensor-core {'/'.join(f'{x:.3f}' for x in t)} ms; the two agree on {a_plain:.6f} of "
           f"the B*P probes; agreement with the exact f32 probes: tensor-core {a_new:.6f}, "
-          f"plain {a_old:.6f}")
-    check(a_plain >= MIN_PROBE_AGREEMENT,
+          f"plain {a_old:.6f}{ties}")
+    check(a_plain >= MIN_PROBE_AGREEMENT or crowded,
           f"stage 1 on the tensor cores agrees with its plain version on {a_plain} < "
           f"{MIN_PROBE_AGREEMENT} of the probes")
     return (t[0] + t[3]) / 2
 
 
-def probe_path_stages(torch, V, R, IC, db, queries, scan_residual, tag):
+def stage1_scores(torch, st, q, metric):
+    """Stage 1 of probe selection (``ivf.probe_candidates``; the reference's
+    ``zebra_tpu/index/ivf.py:514-523``) recomputed exactly for queries
+    ``q [B, D]``: every centroid's score from the bf16-rounded query and
+    centroids, multiplied and summed in f64 (stage 1's products are exact;
+    only its f32 sum rounds), with the |c|^2 of the f32 centroids. ``[B, K]``
+    f64, higher is nearer."""
+    qb = q.to(torch.bfloat16).double()
+    c64 = st.centroids.double()
+    cn2 = (c64 * c64).sum(-1)
+    dot = qb @ st.centroids.to(torch.bfloat16).double().T
+    return dot / cn2.sqrt().clamp(min=1e-30) if metric == "cosine" else 2.0 * dot - cn2
+
+
+def stage1_ties(torch, V, st, qt, P, metric):
+    """Where stage 1 on the tensor cores and its plain version keep
+    different 2P cells (the same products, summed in another order), the
+    ``stage1_scores`` of every cell in one set and not the other against
+    the 2P-th best: ``(queries whose sets differ, the largest gap relative
+    to 1 + |score|)``."""
+    a = V.probe_candidates(st, qt, 2 * P, metric, emulate=False)
+    b = V.probe_candidates(st, qt, 2 * P, metric, emulate=True)
+    a_in_b = (a[:, :, None] == b[:, None, :]).any(-1)
+    b_in_a = (b[:, :, None] == a[:, None, :]).any(-1)
+    rows = torch.nonzero(~a_in_b.all(1) | ~b_in_a.all(1)).flatten()
+    if rows.numel() == 0:
+        return 0, 0.0
+    s = stage1_scores(torch, st, qt[rows], metric)
+    kth = s.topk(2 * P, dim=1).values[:, -1:]
+    cells = torch.cat([torch.where(a_in_b[rows], -1, a[rows]),
+                       torch.where(b_in_a[rows], -1, b[rows])], 1)
+    gaps = ((s.gather(1, cells.clamp(min=0)) - kth).abs() / (1.0 + kth.abs()))[cells >= 0]
+    return int(rows.numel()), float(gaps.max())
+
+
+def probe_path_stages(torch, V, R, IC, db, queries, scan_residual, tag, crowded=False):
     """Phases 4, 10 and 11, after the facade run (these launches come after the
     count was read): kernel 1's form of the tier on the path's own probes,
     both kernel forms against the plain version and timed in turns, probe
-    selection new against plain, and the stages of one device query by CUDA
-    events, at B=1024 and B=16384. Returns the records of the two forms at
-    B=16384."""
+    selection new against plain (``crowded``: see ``probe_selection_report``),
+    and the stages of one device query by CUDA events, at B=1024 and
+    B=16384. Returns the records of the two forms at B=16384."""
     idx = db.index
     st, metric, P = idx.state, idx.metric, idx.options.resolved_probes()
     name = R._FORM_NAME[st.vectors.dtype] + (
@@ -1060,7 +1186,7 @@ def probe_path_stages(torch, V, R, IC, db, queries, scan_residual, tag):
             st, qt, probes, 10, metric, scan_residual=scan_residual), 2)
         kernel_ms = time_ms(torch, lambda: R.ivf_rerank(st, qt, probes, 10, metric,
                                                         scan_residual), 20)
-        sel_ms = probe_selection_report(torch, V, st, qt, P, metric, tag)
+        sel_ms = probe_selection_report(torch, V, st, qt, P, metric, tag, crowded)
         spare = "spare empty, _merge_spare not run"
         if idx._spare_used > 0:
             got = R.ivf_rerank(st, qt, probes, 10, metric, scan_residual)
@@ -1750,33 +1876,47 @@ def tower_flops(enc, length: int) -> float:
 
 
 def cli_drive(tmp):
-    """``python -m zebra_tpu_torch.cli`` in subprocesses on the card: text
-    insert, query, stats and clear on a small database, checked as the JAX
-    package's ``tests/test_cli.py`` checks its CLI."""
+    """The text CLI on the card: ``python -m zebra_tpu_torch.cli`` text
+    insert and query in subprocesses, then stats and clear through its
+    ``main`` in this process (cut from two more processes of ~30 s each when
+    phases 14 and 15 joined the run), checked as the JAX package's
+    ``tests/test_cli.py`` checks its CLI."""
+    import contextlib
+    import io
+
+    from zebra_tpu_torch.cli import main as cli_main
+
     env = {**os.environ, "PYTHONPATH": os.path.dirname(os.path.abspath(__file__))}
     db = os.path.join(tmp, "cli.zebra")
 
-    def run(*argv):
+    def run(*argv, process=True):
         t0 = time.perf_counter()
-        proc = subprocess.run([sys.executable, "-m", "zebra_tpu_torch.cli", "--database-path",
-                               db, "text", *argv], cwd=tmp, env=env, capture_output=True,
-                              text=True, timeout=300)
-        check(proc.returncode == 0, f"cli text {argv[0]} exited {proc.returncode}: "
-              f"{proc.stderr[-2000:]}")
-        return proc.stdout, time.perf_counter() - t0
+        args = ["--database-path", db, "text", *argv]
+        if process:
+            proc = subprocess.run([sys.executable, "-m", "zebra_tpu_torch.cli", *args], cwd=tmp,
+                                  env=env, capture_output=True, text=True, timeout=300)
+            rc, out, err = proc.returncode, proc.stdout, proc.stderr
+        else:
+            out_io, err_io = io.StringIO(), io.StringIO()
+            with contextlib.redirect_stdout(out_io), contextlib.redirect_stderr(err_io):
+                rc = cli_main(args)
+            out, err = out_io.getvalue(), err_io.getvalue()
+        check(rc == 0, f"cli text {argv[0]} exited {rc}: {err[-2000:]}")
+        return out, time.perf_counter() - t0
 
     out, t_ins = run("insert", "apple pie recipe", "rocket science")
     check("Inserted 2" in out and "384-dimensional" in out, f"cli insert printed {out!r}")
     out, t_q = run("query", "apple pie recipe", "-n", "1")
     check("apple pie recipe" in out and "rocket science" not in out, f"cli query printed {out!r}")
-    out, t_st = run("stats")
+    out, t_st = run("stats", process=False)
     info = json.loads(out)
     check(info["records"] == 2 and info["config"]["dim"] == 384 and info["index"]["built"],
           f"cli stats printed {out!r}")
-    out, t_cl = run("clear")
+    out, t_cl = run("clear", process=False)
     check(not os.path.exists(db) and not os.path.exists(db + ".d"), "cli clear left files")
-    print(f"text cli: python -m zebra_tpu_torch.cli text insert / query / stats / clear "
-          f"passed ({t_ins:.1f} / {t_q:.1f} / {t_st:.1f} / {t_cl:.1f} s a process, host clock)")
+    print(f"text cli: python -m zebra_tpu_torch.cli text insert / query passed ({t_ins:.1f} / "
+          f"{t_q:.1f} s a process), stats / clear through main in this process ({t_st:.1f} / "
+          f"{t_cl:.1f} s; host clock)")
 
 
 def canonical_drive(zt, tmp):
@@ -1842,8 +1982,17 @@ def text_path(torch, zt, V, R, IC, tmp):
     model = db.model
     enc = model.encoder()
     cpu = MT.BGESmallEn15(device="cpu")
-    same_weights = all(torch.equal(a.cpu(), b) for a, b in zip(
-        enc.state_dict().values(), cpu.encoder().state_dict().values()))
+    pairs = list(zip(enc.state_dict().items(), cpu.encoder().state_dict().values()))
+    differ = [(k, int((a.cpu() != b).sum()), float((a.cpu() - b).abs().max()))
+              for (k, a), b in pairs if not torch.equal(a.cpu(), b)]
+    same_weights = not differ
+    if differ:  # which tensors, and whether they still change once the card is idle
+        torch.cuda.synchronize()
+        time.sleep(1.0)
+        again = [k for (k, a), b in pairs if not torch.equal(a.cpu(), b)]
+        print(f"text tower: {len(differ)} tensors differ from the CPU tower's (name, elements, "
+              f"max abs): {differ[:12]}; after a synchronize and 1 s: {len(again)} differ; "
+              f"memory allocated {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
     t0 = time.perf_counter()
     host = cpu.embed_documents(docs[:256])
     cpu_s = time.perf_counter() - t0
@@ -2038,27 +2187,18 @@ def text_path(torch, zt, V, R, IC, tmp):
 
 
 def stage1_witness(torch, st, q, cell: int, metric: str):
-    """Stage 1 of probe selection (``ivf.probe_candidates``; the reference's
-    ``zebra_tpu/index/ivf.py:514-523``) recomputed exactly for one query
-    ``q [D]``: every centroid's score from the bf16-rounded query and
-    centroids, multiplied and summed in f64 (stage 1's products are exact;
-    only its f32 sum rounds), with the |c|^2 of the f32 centroids. Returns
-    ``(above, ref_above, ref_tied)``: the cells scoring strictly above
-    ``cell`` there (stage 1 keeps 2P cells, so ``above >= 2P`` drops it), and
-    with the scores rounded to bf16 as the reference ranks them, the cells
-    strictly above it and those level with it."""
-    qb = q.to(torch.bfloat16).double()
-    cb = st.centroids.to(torch.bfloat16).double()
-    c64 = st.centroids.double()
-    cn2 = (c64 * c64).sum(-1)
-    dot = cb @ qb
-    s = dot / cn2.sqrt().clamp(min=1e-30) if metric == "cosine" else 2.0 * dot - cn2
+    """``stage1_scores`` for one query ``q [D]``: ``(above, ref_above,
+    ref_tied)``, the cells scoring strictly above ``cell`` there (stage 1
+    keeps 2P cells, so ``above >= 2P`` drops it), and with the scores
+    rounded to bf16 as the reference ranks them, the cells strictly above it
+    and those level with it."""
+    s = stage1_scores(torch, st, q[None], metric)[0]
     sb = s.float().to(torch.bfloat16)
     return (int((s > s[cell]).sum()), int((sb > sb[cell]).sum()),
             int((sb == sb[cell]).sum()) - 1)
 
 
-def fault_c_report(torch, V, R, IC, db, qv, rows, ids, docs, live):
+def fault_c_report(torch, V, R, IC, db, qv, rows, ids, docs, live, tag="text ", detail=50):
     """Phase 12's batch-16384 misses: every live row whose top-1 is not its
     own id, with its probes and own cell (or the spare), its own f64
     distance beside the rank-1 row's, and the top-1 of the per-query form,
@@ -2074,7 +2214,8 @@ def fault_c_report(torch, V, R, IC, db, qv, rows, ids, docs, live):
     ``stage1_witness``: scored exactly on the bf16-rounded operands, at
     least 2P cells score above it, and the reference's bf16 scores do not
     keep it in every order among equal ones (at least 2P cells above or
-    level with it).
+    level with it). The first ``detail`` misses are printed one a line,
+    then the count of each explanation over all of them.
     Returns the number of misses."""
     import numpy as np
 
@@ -2082,7 +2223,7 @@ def fault_c_report(torch, V, R, IC, db, qv, rows, ids, docs, live):
     st, metric = idx.state, idx.metric
     P = idx.options.resolved_probes()
     misses = [q for q in live if rows[q][0][0] != ids[q]]
-    print(f"text misses at batch {len(rows)}: {len(misses)} live rows whose top-1 is not "
+    print(f"{tag}misses at batch {len(rows)}: {len(misses)} live rows whose top-1 is not "
           f"their own id")
     if not misses:
         return 0
@@ -2106,12 +2247,17 @@ def fault_c_report(torch, V, R, IC, db, qv, rows, ids, docs, live):
     row_of = {i: r for r, i in enumerate(ids)}
     C, spare_start = st.cluster_capacity, st.spare_start
     unexplained = 0
+    tally = {"not live": 0, "nearer in f64": 0, "in the spare": 0, "a tie with the P-th probe": 0,
+             "spilled": 0, "dropped by stage 1's rounding": 0}
     for b, q in enumerate(misses):
         own = idx._id_to_slot.get(ids[q])
         got = idx._id_to_slot.get(rows[q][0][0])
         same_doc = [r for r in range(len(docs)) if r != q and docs[r] == docs[q]][:4]
         if own is None:
-            print(f"  row {q}: not live (a duplicate of rows {same_doc} removed by deduplicate)")
+            tally["not live"] += 1
+            if b < detail:
+                print(f"  row {q}: not live (a duplicate of rows {same_doc} removed by "
+                      f"deduplicate)")
             continue
         d_own, d_got = (float(d64(b, torch.tensor([s], device=idx.device))[0])
                         for s in (own, got))
@@ -2122,8 +2268,11 @@ def fault_c_report(torch, V, R, IC, db, qv, rows, ids, docs, live):
                 f"{same_doc}; top-1 slot by "
                 + ", ".join(f"{k} {v}{' (own)' if v == own else ''}" for k, v in slots.items()))
         nearer = d_got <= d_own + TIE_TOL * (1 + abs(d_own))
+        tally["nearer in f64"] += nearer
         if own >= spare_start:
-            print(line + "; own slot in the spare")
+            if b < detail:
+                print(line + "; own slot in the spare")
+            tally["in the spare"] += 1
             unexplained += not nearer
             continue
         cell = own // C
@@ -2138,13 +2287,20 @@ def fault_c_report(torch, V, R, IC, db, qv, rows, ids, docs, live):
         above, ref_above, ref_tied = stage1_witness(torch, st, qt[b], cell, metric)
         rounding = (cell not in cand and above >= 2 * P
                     and ref_above + ref_tied >= 2 * P)  # the reference may drop it too
-        print(line + f"; own cell {cell}: f64 rank {rank} (gap to the P-th best {gap:.3g}, "
-              f"a tie: {tie}), among stage 1's {2 * P} candidates {cand}: {cell in cand} "
-              f"(scored exactly on the bf16-rounded operands, {above} cells above it: "
-              f"dropped by the rounding: {rounding}; the reference's bf16 scores put "
-              f"{ref_above} above it and {ref_tied} level with it), placement order {place} "
-              f"(own at {spilled}; > 0 = spilled past fuller cells)")
+        tally["a tie with the P-th probe"] += tie
+        tally["spilled"] += spilled > 0
+        tally["dropped by stage 1's rounding"] += rounding
+        if b < detail:
+            print(line + f"; own cell {cell}: f64 rank {rank} (gap to the P-th best {gap:.3g}, "
+                  f"a tie: {tie}), among stage 1's {2 * P} candidates {cand}: {cell in cand} "
+                  f"(scored exactly on the bf16-rounded operands, {above} cells above it: "
+                  f"dropped by the rounding: {rounding}; the reference's bf16 scores put "
+                  f"{ref_above} above it and {ref_tied} level with it), placement order {place} "
+                  f"(own at {spilled}; > 0 = spilled past fuller cells)")
         unexplained += not (nearer or tie or spilled > 0 or rounding)
+    print(f"{tag}misses: the first {min(detail, len(misses))} printed; over all {len(misses)}, "
+          f"each may hold several explanations: "
+          + ", ".join(f"{k} {v}" for k, v in tally.items()) + f"; unexplained {unexplained}")
     check(not unexplained, f"{unexplained} rows lost their own id to a farther row, their own "
           f"cell neither tied with the probes, spilled to, nor dropped by stage 1's rounding")
     return len(misses)
@@ -2265,32 +2421,57 @@ def growth_path(torch, zt, V, R, tmp, base, queries):
                     for i in range(0, x.shape[0], 8192))
         return total / x.shape[0]
 
-    def against_cold(e, s, got):
-        """The retrained index against a cold build of ``base[:e]``."""
+    def cold_build(parts, s, e):
+        """A cold build in a bare index of ``base[lo:hi]`` for each part in
+        turn: ``(recall etc., (K, C), its k-means objective, seconds)``."""
         cold = db.index._clone_empty()
+        cold.defer_rebuild = len(parts) > 1
         t0 = time.perf_counter()
-        cold.add(base[:e], ids=ids[:e])
+        for lo, hi in parts:
+            cold.add(base[lo:hi], ids=ids[lo:hi])
         cold_s = time.perf_counter() - t0
         want = growth_quality(torch, V, cold, base, ids, queries, s, e)
         shape = (cold.state.num_clusters, cold.state.cluster_capacity)
-        objective = (spread(db.index.state.centroids, e), spread(cold.state.centroids, e))
+        objective = spread(cold.state.centroids, e)
         del cold
         torch.cuda.empty_cache()
-        print(f"growth retrain at {e} rows: K={db.index.state.num_clusters}, "
-              f"C={db.index.state.cluster_capacity}, k-means objective {objective[0]:.6g}, "
-              f"{json.dumps(got)}; a cold build of the same rows ({cold_s:.2f} s): "
-              f"K={shape[0]}, C={shape[1]}, k-means objective {objective[1]:.6g}, "
-              f"{json.dumps(want)}")
-        check(shape == (db.index.state.num_clusters, db.index.state.cluster_capacity)
-              and objective[0] <= objective[1] * (1 + GROWTH_OBJECTIVE_TOL)
-              and all(got[m] >= want[m] - GROWTH_COLD_TOL for m in want),
+        return want, shape, objective, cold_s
+
+    def against_cold(e, s, got):
+        """The retrained index against a cold build of ``base[:e]``. A
+        retrain that lands a call after it began holds ``base[:e]`` in an
+        index sized for the ``m`` rows it captured (both packages size it
+        so): the cold build of ``base[:e]`` is then printed beside it, and
+        what is held is a cold build of the same rows in the same order,
+        the ``m`` captured, then the rest as its journal replay adds them,
+        the cold index's own rebuild reasons deferred."""
+        m = db._retrain_log[-1][1]
+        mine = (db.index.state.num_clusters, db.index.state.cluster_capacity)
+        objective = spread(db.index.state.centroids, e)
+        want, shape, cold_obj, cold_s = cold_build([(0, e)], s, e)
+        late = ""
+        if m < e:
+            late = (f"; the retrain captured {m} rows and landed at {e}, so it is held against "
+                    f"a cold build of those {m} rows plus the {e - m} its journal replay added")
+            print(f"growth retrain at {e} rows: K={mine[0]}, C={mine[1]}, k-means objective "
+                  f"{objective:.6g}, {json.dumps(got)}; a cold build of base[:{e}] "
+                  f"({cold_s:.2f} s), printed, not held (the retrain was sized for {m} rows): "
+                  f"K={shape[0]}, C={shape[1]}, k-means objective {cold_obj:.6g}, "
+                  f"{json.dumps(want)}")
+            want, shape, cold_obj, cold_s = cold_build([(0, m), (m, e)], s, e)
+        print(f"growth retrain at {e} rows: K={mine[0]}, C={mine[1]}, k-means objective "
+              f"{objective:.6g}, {json.dumps(got)}; a cold build of the same rows "
+              f"({cold_s:.2f} s): K={shape[0]}, C={shape[1]}, k-means objective "
+              f"{cold_obj:.6g}, {json.dumps(want)}{late}")
+        check(shape == mine and objective <= cold_obj * (1 + GROWTH_OBJECTIVE_TOL)
+              and all(got[k] >= want[k] - GROWTH_COLD_TOL for k in want),
               f"the retrain at {e} rows built a worse index than a cold build of its rows")
         if not witnessed:
             ref = GROWTH_JAX
-            check(e == ref["live"] and all(got[m] >= ref[m] - GROWTH_JAX_TOL for m in want),
+            check(e == ref["live"] and all(got[k] >= ref[k] - GROWTH_JAX_TOL for k in want),
                   f"the first retrain answers below the JAX package's on the same rows {ref}")
-        witnessed.append({"live": e, "retrained": got, "cold": want, "cold_s": cold_s,
-                          "objective": objective})
+        witnessed.append({"live": e, "captured": m, "retrained": got, "cold": want,
+                          "cold_s": cold_s, "objective": (objective, cold_obj)})
 
     sampler = threading.Thread(target=reader, name="growth-reader", daemon=True)
     sampler.start()
@@ -2464,6 +2645,731 @@ def growth_path(torch, zt, V, R, tmp, base, queries):
     return launches, rec
 
 
+def dist64(torch, metric, a, b, power=3.0):
+    """f64 distances of broadcast rows ``a [..., D]`` and ``b [..., D]``
+    (f64 tensors holding f32 values): the twelve metrics stated again,
+    independently of ``ops/distances.py`` (hamming: a popcount table of the
+    low bytes of the f32 bit patterns)."""
+    if metric in ("cosine", "sql2", "l2"):
+        return metric64(torch, metric, (a * b).sum(-1), (a * a).sum(-1), (b * b).sum(-1))
+    if metric == "hamming":
+        table = torch.tensor([bin(v).count("1") for v in range(256)], dtype=torch.float64,
+                             device=a.device)
+        bits = (a.float().view(torch.int32) ^ b.float().view(torch.int32)) & 0xFF
+        return table[bits.long()].sum(-1)
+    d = (a - b).abs()
+    if metric == "chebyshev":
+        return d.amax(-1)
+    if metric == "canberra":
+        den = a.abs() + b.abs()
+        return torch.where(den > 0, d / den.clamp(min=1e-300), 0.0).sum(-1)
+    if metric == "braycurtis":
+        den = (a + b).abs().sum(-1)
+        return torch.where(den > 0, d.sum(-1) / den.clamp(min=1e-300), 0.0)
+    if metric == "manhattan":
+        return d.sum(-1)
+    if metric == "minkowski":
+        return (d ** power).sum(-1) ** (1.0 / power)
+    if metric == "p_norm":
+        return (d ** power).sum(-1)
+    return (d ** {"l3": 3, "l4": 4}[metric]).sum(-1) ** (1.0 / {"l3": 3, "l4": 4}[metric])
+
+
+def exact64_topk(torch, metric, rows, valid, q, k, power=3.0):
+    """``(f64 distances [B, k] ascending, slots [B, k])`` of queries ``q``
+    over the stored rows ``rows [S, D]`` (live where ``valid``), in f64:
+    the Gram metrics by f64 GEMMs of 131,072-row chunks, the elementwise
+    ones by ``dist64`` in chunks of at most 512 MiB of f64 differences."""
+    B, D = q.shape
+    q64 = q.double()
+    mxu = metric in ("cosine", "sql2", "l2")
+    chunk = 131072 if mxu else max(256, (1 << 29) // (B * D * 8))
+    inf = float("inf")
+    best_d = torch.full((B, k), inf, dtype=torch.float64, device=q.device)
+    best_s = torch.full((B, k), -1, dtype=torch.int64, device=q.device)
+    for s in range(0, rows.shape[0], chunk):
+        x = rows[s : s + chunk].double()
+        if mxu:
+            d = metric64(torch, metric, q64 @ x.T, (q64 * q64).sum(-1)[:, None],
+                         (x * x).sum(-1)[None, :])
+        else:
+            d = dist64(torch, metric, q64[:, None, :], x[None, :, :], power)
+        d = torch.where(valid[s : s + chunk][None, :], d, inf)
+        slots = torch.arange(s, s + x.shape[0], device=q.device).expand(B, -1)
+        best_d, pos = torch.cat([best_d, d], 1).topk(k, dim=1, largest=False)
+        best_s = torch.gather(torch.cat([best_s, slots], 1), 1, pos)
+    return best_d, best_s
+
+
+def hold_exact(torch, metric, rows, got_slots, q, top64, power=3.0):
+    """An exact top-k held to the f64 answer: at every rank the f64 distance
+    of the returned row must equal the f64 top-k's within TIE_TOL (relative
+    to 1 + |d|), so every rank where the ids differ is an f64 tie. Returns
+    ``(ranks whose ids differ, largest relative gap)``."""
+    d_top, s_top = top64
+    g = torch.as_tensor(got_slots, device=q.device).long()
+    d_got = dist64(torch, metric, q.double()[:, None, :], rows[g.clamp(min=0)].double(), power)
+    gap = float(((d_got - d_top).abs() / (1.0 + d_top.abs())).max())
+    differ = int((g != s_top).sum())
+    check(bool((g >= 0).all()) and gap <= TIE_TOL,
+          f"{metric}: an exact top-{g.shape[1]} rank is {gap} from the f64 answer (> {TIE_TOL})")
+    return differ, gap
+
+
+def flat_path(torch, zt, V, TB, R, tmp, base, queries):
+    """Phase 14: the exact tier, the nine elementwise metrics, IVF with
+    manhattan and LSH with l3, on the smoke's rows. Returns the phase's
+    record."""
+    import numpy as np
+    from zebra_tpu_torch.ops import distances as D
+    from zebra_tpu_torch.ops import scan as S
+
+    device = torch.device("cuda", 0)
+    rec = {}
+    # the exact tier through the facade
+    path = os.path.join(tmp, "exact.zebra")
+    db = zt.Database.create(path, zt.DatabaseConfig(dim=DIM, index=zt.IndexOptions.tier("exact")))
+    t0 = time.perf_counter()
+    ids = db.insert_vectors(base)
+    insert_s = time.perf_counter() - t0
+    idx = db.index
+    st = idx.state
+    print(f"exact tier: {type(idx).__name__}, index_type {idx.options.index_type}, slab "
+          f"{st.vectors.dtype} {tuple(st.vectors.shape)}, precision "
+          f"{idx.options.exact_precision}; durable insert of {len(ids)} rows in {insert_s:.2f} s "
+          f"(host clock; durability {db.config.durability})")
+    check(idx.options.index_type == "flat" and st.vectors.dtype == torch.float32
+          and len(db) == base.shape[0], "the exact tier must hold every row in an f32 slab")
+    rec.update(insert_s=insert_s, settle_s=[settle(db, "exact ", "after the insert")])
+    q = queries[:FLAT_QUERIES]
+    qt = torch.from_numpy(q).to(device)
+    arrays = idx.search_arrays(q, 10)
+    top64 = exact64_topk(torch, "cosine", st.vectors, st.valid, qt, 10)
+    differ, gap = hold_exact(torch, "cosine", st.vectors, arrays[1], qt, top64)
+    flat_ms = time_ms(torch, lambda: idx._query_device(qt, 10, False), 5)
+    live = int(st.valid.sum())
+    flops = 2.0 * FLAT_QUERIES * live * DIM
+    flat_bound, flat_by = bound_ms(float(live * (DIM * 4 + 1) + qt.numel() * 4
+                                         + FLAT_QUERIES * 10 * 12), flops, PEAK_F32)
+    print(f"exact tier search_arrays top-10 of {FLAT_QUERIES} held-out queries against the f64 "
+          f"scan: every rank within {TIE_TOL} (largest gap {gap:.3g}); {differ} ranks hold "
+          f"another id, all f64 ties; device time {flat_ms:.3f} ms per {FLAT_QUERIES} queries "
+          f"over {st.vectors.shape[0]} slots, {live} live (CUDA events; {flops / 1e12:.2f} "
+          f"TFLOP, bound {flat_bound:.3f} ms by {flat_by}, "
+          f"{flat_bound / flat_ms:.3f} of it)")
+    low = TB.brute_force(st, qt, 10, metric="cosine", precision="default")
+    low_ms = time_ms(torch, lambda: TB.brute_force(st, qt, 10, metric="cosine",
+                                                   precision="default"), 5)
+    hi_slots = torch.from_numpy(arrays[1]).to(device)
+    agree = float((low[1][:, :, None] == hi_slots[:, None, :]).any(-1).float().mean())
+    print(f"exact tier, exact_precision=\"default\" (bf16 operands, f32 accumulator on the "
+          f"tensor cores): {low_ms:.3f} ms per {FLAT_QUERIES} queries (CUDA events); top-10 "
+          f"agreement with \"highest\" {agree:.4f}")
+    pick = np.linspace(0, base.shape[0] - 1, 1024).astype(np.int64)
+    self_rate = float(np.mean([r[0][0] == ids[i] for r, i in zip(db.query(base[pick], 1), pick)]))
+    gone = [ids[i] for i in pick[:100]]
+    db.remove(gone)
+    back = {i for row in db.query(base[pick[:100]], 10) for i, _ in row} & set(gone)
+    want = db.query(q[:256], 10)
+    db.save()
+    db.close()
+    del idx, st
+    db = zt.Database.open(path)
+    same = db.query(q[:256], 10) == want
+    print(f"exact tier: self-retrieval {self_rate:.4f} over 1024 rows; {len(gone)} removed, "
+          f"{len(back)} returned again; save, close, reopen: same top-10 for 256 queries: {same}")
+    check(self_rate == 1.0 and not back and same and len(db) == base.shape[0] - len(gone),
+          "the exact tier lost a row, returned a removed one or changed across a reopen")
+    rec.update(ms=flat_ms, bound_ms=flat_bound, default_ms=low_ms, default_agreement=agree,
+               differing_ranks=differ)
+    st = db.index.state
+    n = int(st.valid.sum())
+    # the occupied slots, rounded up to the scan's 8192-row chunk (the
+    # slab's capacity is the next power of two past twice the rows)
+    w_len = -(-db.index._next_slot // 8192) * 8192
+
+    # the nine elementwise metrics through ops.scan.exact_scan on the same slab
+    qm = qt[:METRIC_QUERIES]
+    pairs = max(1, D.ELEMENTWISE_BYTES // (4 * DIM))
+    q_chunks = -(-METRIC_QUERIES // max(1, min(METRIC_QUERIES, pairs // min(8192, pairs))))
+    metrics = {}
+    for metric in ELEMENTWISE:
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        got = S.exact_scan(st.vectors, st.valid, qm, 10, metric=metric, w_len=w_len)
+        end.record()
+        end.synchronize()
+        ms = start.elapsed_time(end)
+        differ, gap = hold_exact(torch, metric, st.vectors, got[1], qm, exact64_topk(
+            torch, metric, st.vectors[:w_len], st.valid[:w_len], qm, 10))
+        b, by = bound_ms(float(q_chunks * n * DIM * 4 + n),
+                         float(ELEMENT_OPS[metric] * METRIC_QUERIES * n * DIM), PEAK_F32)
+        metrics[metric] = {"ms": ms, "bound_ms": b, "bound_by": by, "differing_ranks": differ,
+                           "gap": gap}
+        print(f"elementwise {metric}: exact_scan top-10 of {METRIC_QUERIES} queries over "
+              f"{n} live rows in the first {w_len} slots: {ms:.3f} ms (one run, CUDA events); "
+              f"bound {b:.3f} ms by {by} (the slab read "
+              f"once per query chunk, {q_chunks} chunks; {ELEMENT_OPS[metric]} f32 operations "
+              f"an element), {b / ms:.4f} of it; against the f64 scan: every rank within "
+              f"{TIE_TOL} (largest gap {gap:.3g}), {differ} ranks another id")
+    rec["metrics"] = metrics
+    db.close()
+    del db, st, arrays, top64, low
+    torch.cuda.empty_cache()
+    shutil.rmtree(path + ".d", ignore_errors=True)
+
+    # IVF at the defaults with manhattan: cells by sql2, the block re-rank
+    path = os.path.join(tmp, "manhattan.zebra")
+    R.LAUNCHES = 0
+    R.LAUNCHES_BY_FORM.clear()
+    V.EAGER_LARGE_K = 0
+    db = zt.Database.create(path, zt.DatabaseConfig(dim=DIM, metric="manhattan"))
+    t0 = time.perf_counter()
+    ids = db.insert_vectors(base)
+    insert_s = time.perf_counter() - t0
+    rec["manhattan_settle_s"] = settle(db, "manhattan ", "after the insert")
+    idx = db.index
+    st = idx.state
+    qi = queries[:IVF_METRIC_QUERIES]
+    qit = torch.from_numpy(qi).to(device)
+    approx = idx.search_arrays(qi, 10)[1]
+    exact = V.brute_force(st, qit, 10, metric="manhattan")[1].cpu().numpy()
+    recall = float(np.mean([len(set(a) & set(b)) / 10 for a, b in zip(approx, exact)]))
+    ivf_ms = time_ms(torch, lambda: idx._query_device(qit, 10, False), 3)
+    rows = idx.search(base[pick], 1)
+    own = [r[0][0] == ids[i] for r, i in zip(rows, pick)]
+    misses = elementwise_misses(torch, V, idx, base, pick, ids, rows, own)
+    print(f"IVF manhattan (defaults: {idx.options.dtype} refine={idx.options.refine}, "
+          f"P={idx.options.resolved_probes()}, K={st.num_clusters}, C={st.cluster_capacity}; "
+          f"cells by {idx._cell_metric}): insert {insert_s:.2f} s; recall@10 {recall:.4f} over "
+          f"{IVF_METRIC_QUERIES} held-out queries against ivf.brute_force; self-retrieval "
+          f"{float(np.mean(own)):.4f} over 1024 rows ({misses} misses, each explained); one "
+          f"device query of {IVF_METRIC_QUERIES} {ivf_ms:.3f} ms (CUDA events); kernel 1 "
+          f"launches {R.LAUNCHES} {dict(R.LAUNCHES_BY_FORM)}, eager fallbacks counted "
+          f"{V.EAGER_LARGE_K}")
+    check(recall >= MIN_RECALL, f"IVF manhattan recall@10 {recall} < {MIN_RECALL}")
+    check(R.LAUNCHES == 0 and not R.LAUNCHES_BY_FORM,
+          "an elementwise metric must take the block path, never kernel 1")
+    rec.update(manhattan_insert_s=insert_s, manhattan_recall=recall,
+               manhattan_self=float(np.mean(own)), manhattan_ms=ivf_ms)
+    db.close()
+    del db, idx, st
+    torch.cuda.empty_cache()
+    shutil.rmtree(path + ".d", ignore_errors=True)
+
+    # LSH with l3: the card against the CPU on the same saved index
+    path = os.path.join(tmp, "l3.zebra")
+    db = zt.Database.create(path, zt.DatabaseConfig(
+        dim=DIM, metric="l3", index=zt.IndexOptions(index_type="lsh")))
+    rows_l3 = base[:LSH_METRIC_ROWS]
+    ids = db.insert_vectors(rows_l3)
+    settle(db, "l3 ", "after the insert")
+    db.save()
+    ql = queries[:METRIC_QUERIES]
+    t0 = time.perf_counter()
+    card = db.index.search_arrays(ql, 10)
+    card_s = time.perf_counter() - t0
+    db.close()
+    host = zt.Database.open(path, device="cpu")
+    t0 = time.perf_counter()
+    cpu = host.index.search_arrays(ql, 10)
+    cpu_s = time.perf_counter() - t0
+    stored = host.index.state.vectors
+    qc = torch.from_numpy(ql)
+    d_card, d_cpu = (dist64(torch, "l3", qc.double()[:, None, :],
+                            stored[torch.from_numpy(r[1])].double()) for r in (card, cpu))
+    gap = float(((d_card - d_cpu).abs() / (1.0 + d_cpu.abs())).max())
+    differ = int((card[1] != cpu[1]).sum())
+    err = float(np.abs(card[0] - cpu[0]).max())
+    print(f"LSH l3 ({LSH_METRIC_ROWS} rows, {METRIC_QUERIES} queries, saved on the card, opened "
+          f"on the CPU): the card's top-10 against the CPU's: {differ} ranks hold another id "
+          f"(largest f64 gap {gap:.3g} <= {TIE_TOL}), max abs distance difference {err:.3g}; "
+          f"search_arrays {card_s * 1e3:.1f} ms on the card, {cpu_s * 1e3:.1f} ms on the CPU "
+          f"(host clock)")
+    check(np.array_equal(card[2], cpu[2]) and gap <= TIE_TOL
+          and np.allclose(card[0], cpu[0], rtol=1e-5, atol=1e-5),
+          "LSH l3 on the card differs from the CPU run of the same index")
+    host.close()
+    rec.update(l3_differing_ranks=differ, l3_max_err=err)
+    return rec
+
+
+def elementwise_misses(torch, V, idx, base, pick, ids, rows, own):
+    """Self-retrieval misses of an IVF index with an elementwise metric:
+    each passes only as a property of the data or of the index's design:
+    the returned row at least as near as the row itself in f64 (within
+    TIE_TOL), or the row spilled out of its nearest cell by sql2 (the cell
+    metric), or held in the spare. Returns the number of misses."""
+    import numpy as np
+
+    st, metric = idx.state, idx.metric
+    P = idx.options.resolved_probes()
+    bad = 0
+    miss = [b for b, ok in enumerate(own) if not ok]
+    for b in miss:
+        i = int(pick[b])
+        q = torch.from_numpy(base[i : i + 1]).to(idx.device)
+        slot_own = idx._id_to_slot.get(ids[i])
+        slot_got = idx._id_to_slot.get(rows[b][0][0])
+        recon = idx._take_rows(np.array([slot_own, slot_got])).double()
+        d_own, d_got = dist64(torch, metric, q.double(), recon).tolist()
+        probes = V.select_probes(st, q, P, "sql2").tolist()[0]
+        placed = V._cell_choice(q, st.centroids, "sql2",
+                                min(idx.options.spill, st.num_clusters)).tolist()[0]
+        cell = slot_own // st.cluster_capacity if slot_own < st.spare_start else None
+        spilled = cell is None or (cell in placed and placed.index(cell) > 0)
+        nearer = d_got <= d_own + TIE_TOL * (1 + abs(d_own))
+        print(f"  row {i}: returned slot {slot_got} at f64 {d_got:.9g} vs own slot {slot_own} "
+              f"at {d_own:.9g}; own cell {cell} (probes {probes}, placement order {placed})")
+        bad += not (nearer or spilled)
+    check(not bad, f"{bad} rows lost their own id to a farther row in their own probed cell")
+    return len(miss)
+
+
+def draw_image(i: int):
+    """Synthetic photo ``i`` as ``[h, w, 3]`` uint8: a seeded size around
+    320 x 240, a two-colour gradient at a seeded angle and 3-7 filled
+    rectangles."""
+    import numpy as np
+
+    rng = np.random.default_rng([SEED, 15, i])
+    w, h = int(rng.integers(280, 361)), int(rng.integers(200, 281))
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    ang = rng.random() * 2 * np.pi
+    t = (xx * np.cos(ang) + yy * np.sin(ang)) / (w + h) + 0.5
+    c0, c1 = rng.random(3) * 255, rng.random(3) * 255
+    img = c0 + (c1 - c0) * t[..., None]
+    for _ in range(int(rng.integers(3, 8))):
+        x0, x1 = np.sort(rng.integers(0, w, 2))
+        y0, y1 = np.sort(rng.integers(0, h, 2))
+        img[y0 : y1 + 1, x0 : x1 + 1] = rng.random(3) * 255
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def make_image(i: int) -> bytes:
+    """Image ``i`` as JPEG bytes (quality 90). Module level, for a spawned
+    worker pool."""
+    import io
+
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.fromarray(draw_image(i)).save(buf, format="JPEG", quality=90)
+    return buf.getvalue()
+
+
+def make_clip(i: int, samples: int = AUDIO_SAMPLES, stream: int = 16):
+    """Synthetic clip ``i``: ``samples`` of 16 kHz mono 16-bit PCM (2 s by
+    default), 1-3 tones (60 Hz - 7.7 kHz) and, for half the clips, a chirp
+    across the clip, under a slow amplitude envelope, with a little noise;
+    int16 numpy. ``stream`` keeps the draws of two sets apart."""
+    import numpy as np
+
+    rng = np.random.default_rng([SEED, stream, i])
+    t = np.arange(samples) / AUDIO_RATE
+    x = np.zeros(samples)
+    for _ in range(int(rng.integers(1, 4))):
+        f = 60.0 * 2 ** (rng.random() * 7)
+        x += rng.uniform(0.1, 0.5) * np.sin(2 * np.pi * f * t + rng.random() * 2 * np.pi)
+    if rng.random() < 0.5:
+        f0, f1 = 60.0 * 2 ** (rng.random(2) * 7)
+        sweep = 2.0 * samples / AUDIO_RATE
+        x += rng.uniform(0.1, 0.5) * np.sin(2 * np.pi * (f0 * t + (f1 - f0) * t * t / sweep))
+    x *= 0.6 + 0.4 * np.sin(2 * np.pi * rng.uniform(0.2, 3.0) * t + rng.random() * 2 * np.pi)
+    x += rng.normal(0.0, 0.01, samples)
+    x *= 0.9 / max(float(np.abs(x).max()), 1e-9)
+    return np.round(x * 32767).astype(np.int16)
+
+
+def make_wide_wav(i: int) -> bytes:
+    """Clip ``i`` of the set that fills the tower's 30 s window, as WAV."""
+    return wav_bytes(make_clip(i, WIDE_SAMPLES, 17))
+
+
+def wav_bytes(pcm) -> bytes:
+    import io
+    import wave
+
+    buf = io.BytesIO()
+    with wave.open(buf, "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(AUDIO_RATE)
+        w.writeframes(pcm.astype("<i2").tobytes())
+    return buf.getvalue()
+
+
+def flac_bytes(pcm) -> bytes:
+    """The clip through the repository's independent FLAC encoder
+    (``tests/flac_encoder.py``, loaded by its path: an installed package
+    named ``tests`` may shadow the repository's; fixed order-2 prediction,
+    4096-sample blocks)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("flac_encoder", os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "tests", "flac_encoder.py"))
+    enc = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(enc)
+    return enc.encode_flac(pcm.astype("int64"), rate=AUDIO_RATE, bps=16, blocksize=4096,
+                       kind="fixed", order=2)
+
+
+def media_availability() -> None:
+    """What the card's machine has for the media decoders, printed; fails
+    without Pillow, which the image path decodes with."""
+    import ctypes.util
+    import importlib.util
+
+    from zebra_tpu_torch.native import av, codecs, flac
+
+    have_pil = importlib.util.find_spec("PIL") is not None
+    print(f"media libraries: Pillow {have_pil}; libmpg123 {codecs._libmpg123() is not None} "
+          f"({ctypes.util.find_library('mpg123')}); libvorbisfile "
+          f"{codecs._libvorbisfile() is not None} ({ctypes.util.find_library('vorbisfile')}); "
+          f"the libav shim builds and loads: {av.available()}; the FLAC decoder builds: "
+          f"{flac.available()}")
+    check(have_pil, "Pillow is not installed: the image path cannot decode its JPEGs")
+
+
+def path_entry(label, by_form, path_recs, err):
+    """Kernel 1's JSON entry for one document path: the numbers of the form
+    the path launched most, on the path's own probes, and every form's."""
+    source = {"query": "zebra_tpu_torch/csrc/ivf_rerank.cu",
+              "cluster": "zebra_tpu_torch/csrc/ivf_rerank_cluster.cu"}
+    main_form = max(by_form, key=by_form.get).split("/")[1]
+    r = path_recs[f"int8+residual/{main_form}"]
+    return {"name": "ivf_rerank", "path": label, "route": "cuda", "source": source[main_form],
+            "replaces": "zebra_tpu/ops/pallas_ivf.py:72", "launches": sum(by_form.values()),
+            "max_abs_err": max(err, *(x["max_abs_err"] for x in path_recs.values())),
+            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": None,
+            "forms": {k: {"source": source[k.split("/")[1]], "launches": by_form.get(k, 0), **v}
+                      for k, v in path_recs.items()}}
+
+
+def document_path(torch, zt, V, R, IC, db, cpu_model, docs, held, tag,
+                  remove=MEDIA_REMOVE, dup=MEDIA_DUP_ROWS, require_spread=None):
+    """Phase 15's checks of one media database at its defaults, as phase 12
+    holds the text path: the card's tower against the CPU's on 256
+    documents (<= MEDIA_TOWER_ATOL), one document bitwise equal alone, at
+    another row and in another call; ``insert_documents`` with its stage
+    table; ``query_documents`` of the held-out documents (QPS, the returned
+    bytes equal the inserted bytes); self-retrieval of 1024 documents (1.0,
+    or each miss classified by ``fault_c_report``, whose own launches are
+    kept out of the path's count) and the share of the cells their probes
+    reach; removes (ids and blobs gone); the ``dup`` rows' planted copies
+    removed exactly by ``deduplicate``; save, close, reopen (same answers);
+    the stored rows queried at once (kernel 1 by form); the facade's top-10
+    against kernel 1's plain version on the same probes; both forms on the
+    path's probes. ``require_spread`` (the audio databases): True requires
+    the probed share to reach MIN_PROBED_SHARE; False names the
+    self-retrieval and parity as not counted where it does not (and lets
+    probe selection's stage 1 differ by f64 ties). Returns kernel 1's
+    launches by form, the path's kernel records, the parity error and the
+    record."""
+    import numpy as np
+    from zebra_tpu_torch import profiling as P
+
+    model = db.model
+    n = len(docs)
+    card = model.embed_documents(docs[:256])
+    t0 = time.perf_counter()
+    host = cpu_model.embed_documents(docs[:256])
+    cpu_s = time.perf_counter() - t0
+    same_weights = all(torch.equal(a.cpu(), b) for a, b in zip(
+        model.tower().state_dict().values(), cpu_model.tower().state_dict().values()))
+    tower_err = float(np.abs(card - host).max())
+    alone = model.embed_documents([docs[77]])[0]
+    in_100 = model.embed_documents(docs[:100])[77]
+    in_38 = model.embed_documents(docs[40:78])[37]
+    bitwise = all(np.array_equal(alone.view(np.uint32), v.view(np.uint32)) for v in (in_100, in_38))
+    print(f"{tag}tower ({model.mode}, batch {model.batch_size}): same weights as the CPU tower: "
+          f"{same_weights}; card vs CPU on 256 documents: max abs err {tower_err:.3g} (<= "
+          f"{MEDIA_TOWER_ATOL}; the CPU took {cpu_s:.2f} s); one document alone, at row 77 of "
+          f"100 and at row 37 of 38: bitwise equal {bitwise}")
+    check(same_weights and tower_err <= MEDIA_TOWER_ATOL, f"{tag}the card's tower differs")
+    check(bitwise, f"{tag}the embedding depends on the batch")
+    R.LAUNCHES = 0
+    R.LAUNCHES_BY_FORM.clear()
+    V.EAGER_LARGE_K = 0
+    P.GLOBAL_STATS.ops.clear()
+    t0 = time.perf_counter()
+    ids = db.insert_documents(docs)
+    insert_s = time.perf_counter() - t0
+    stages = db.stats.summary()
+    st = db.index.stats()
+    split = ", ".join(f"{k} {stages[k]['seconds']:.2f} s" for k in
+                      ("insert.embed", "insert.blobs", "insert.wal", "insert.index") if k in stages)
+    print(f"{tag}insert_documents: {n} documents in {insert_s:.2f} s = {n / insert_s:.0f} "
+          f"documents/s (host clock): {split}; clusters={st['clusters']}, "
+          f"C={st['cluster_capacity']}, spare_used={st['spare_used']}, overflow={st['overflow']}")
+    check(len(db) == n and st["overflow"] == 0, f"{tag}documents lost on insert")
+    check({"insert.embed", "insert.blobs", "insert.wal", "insert.index"} <= set(stages),
+          f"{tag}the insert stage table lacks a stage")
+    rec = {"insert_s": insert_s, "stages": stages, "tower_err": tower_err,
+           "settle_s": [settle(db, tag, "after the insert")]}
+    doc_of = dict(zip(ids, docs))
+    q_before = stages.get("query.embed", {}).get("seconds", 0.0)
+    t0 = time.perf_counter()
+    found = {}
+    for s in range(0, len(held), 256):
+        found.update({s + q: v for q, v in db.query_documents(held[s : s + 256], 10).items()})
+    qs = time.perf_counter() - t0
+    q_embed = db.stats.summary()["query.embed"]["seconds"] - q_before
+    print(f"{tag}query_documents: {len(held)} held-out documents in batches of 256, k=10: "
+          f"{len(held) / qs:.0f} QPS, of which query.embed {q_embed:.2f} s of {qs:.2f} s")
+    check(len(found) == len(held) and all(len(v) == 10 for v in found.values()),
+          f"{tag}every held-out query must return 10 documents")
+    check(all(doc_of[i] == d for v in found.values() for i, d in v.items()),
+          f"{tag}a returned document differs from the inserted bytes of its id")
+    rec.update(query_qps=len(held) / qs, query_embed_s=q_embed)
+    pick = np.linspace(0, n - 1, 1024).astype(np.int64)
+    picked = [docs[i] for i in pick]
+    hits = db.query_documents(picked, number_of_results=1)
+    self_rate = float(np.mean([hits[q] == {ids[i]: docs[i]} for q, i in enumerate(pick)]))
+    # the diagnosis below launches kernel 1 itself: the path's count is kept
+    # as it stood before it
+    count = R.LAUNCHES, dict(R.LAUNCHES_BY_FORM)
+    qv = model.embed_documents(picked)
+    idx = db.index
+    K = idx.state.num_clusters
+    probed = V.select_probes(idx.state, torch.from_numpy(qv).to(idx.device),
+                             idx.options.resolved_probes(), idx.metric, idx.options.probe_sel)
+    share = torch.unique(probed).numel() / K
+    spread = share >= MIN_PROBED_SHARE
+    misses = 0
+    if self_rate < 1.0:
+        misses = fault_c_report(torch, V, R, IC, db, qv, db.query(qv, 10),
+                                [ids[i] for i in pick], picked, range(len(pick)), tag)
+    R.LAUNCHES = count[0]
+    R.LAUNCHES_BY_FORM.clear()
+    R.LAUNCHES_BY_FORM.update(count[1])
+    counted = "" if spread or require_spread is None else (
+        f"; NOT COUNTED: the queries probe {share:.3f} of the cells (< {MIN_PROBED_SHARE}), "
+        f"every answer an f64 tie of the others, so neither this nor the parity below can "
+        f"fail a wrong answer here")
+    print(f"{tag}self-retrieval: {self_rate:.4f} over 1024 inserted documents ({misses} misses, "
+          f"each classified); their probes reach {torch.unique(probed).numel()} of {K} cells "
+          f"({share:.3f}){counted}")
+    check(spread or not require_spread, f"{tag}the queries probe {share:.3f} of the cells "
+          f"(< {MIN_PROBED_SHARE}): the data are too crowded for the checks to count")
+    gone = ids[remove]
+    db.remove(gone)
+    back = {i for v in db.query_documents(docs[remove], 10).values() for i in v} & set(gone)
+    blobs_left = db._docs.read_many(gone)
+    copies = db.insert_documents(docs[dup])
+    before = len(db)
+    t0 = time.perf_counter()
+    db.deduplicate()
+    dedup_s = time.perf_counter() - t0
+    removed = before - len(db)
+    left = sum(i in db.index for i in copies)
+    print(f"{tag}remove: {len(gone)} ids removed; returned again {len(back)}; blobs left "
+          f"{len(blobs_left)}; deduplicate: {removed} of {len(copies)} planted copies removed "
+          f"({left} left) in {dedup_s:.3f} s")
+    check(not back and not blobs_left, f"{tag}a removed id came back or kept its blob")
+    check(removed == len(copies) and left == 0 and not db._docs.read_many(copies)
+          and all(i in db.index for i in ids[dup]),
+          f"{tag}deduplicate did not remove exactly the planted copies")
+    probe = held[:256]
+    want = db.query_documents(probe, 10)
+    rec["settle_s"].append(settle(db, tag, "before the save"))
+    path = db.path
+    db.save()
+    db.close()
+    db = zt.Database.open(path)
+    got = db.query_documents(probe, 10)
+    print(f"{tag}save, close, reopen: same top-10 and blobs for 256 held-out documents: "
+          f"{got == want}; live documents {len(db)}")
+    check(got == want and len(db) == n - len(gone), f"{tag}the reopened database differs")
+    idx = db.index
+    live = np.array(sorted(idx._id_to_slot.get(i) for i in ids if i in idx), np.int64)
+    big = idx._take_rows(live).float().cpu().numpy()
+    big_rows = db.query(big, 10)
+    launches, by_form = R.LAUNCHES, dict(R.LAUNCHES_BY_FORM)
+    print(f"{tag}db.query of the {len(big)} stored rows at once: self at rank 1 for "
+          f"{float(np.mean([r[0][1] <= 1e-5 for r in big_rows])):.4f}; kernel 1 launches over "
+          f"the path {launches} {by_form}; eager fallbacks {V.EAGER_LARGE_K}")
+    check(launches > 0 and sum(by_form.values()) == launches and V.EAGER_LARGE_K == 0,
+          f"{tag}the path must run kernel 1")
+    st, metric, probes_n = idx.state, idx.metric, idx.options.resolved_probes()
+    qh = model.embed_documents(held)
+    qt = torch.from_numpy(qh).to(idx.device)
+    arrays = idx.search_arrays(qh, 10)
+    facade = (torch.from_numpy(arrays[0]).to(idx.device),
+              torch.from_numpy(arrays[1]).to(idx.device).long(),
+              torch.from_numpy(arrays[2]).to(idx.device))
+    probes = V.select_probes(st, qt, probes_n, metric, idx.options.probe_sel)
+    plain = R.ivf_rerank_reference(st, qt, probes, 10, metric, scan_residual=True)
+    if idx._spare_used > 0:
+        plain = V._merge_spare(st, qt, *plain, 10, metric, True)
+    agree, err, swaps, gap = hold(torch, facade, plain, slab_d64(torch, st, qt, metric, True),
+                                  min_agree=0.0)
+    print(f"{tag}parity: the facade's top-10 of the {len(held)} held-out documents against "
+          f"kernel 1's plain version on the same probes (P={probes_n}, {metric}): slot "
+          f"agreement {agree:.6f}, max abs err {err:.3g}; {swaps} differing ranks, all ties "
+          f"(largest f64 gap {gap:.3g} <= {TIE_TOL}){'; not counted' if counted else ''}")
+    path_recs = probe_path_stages(torch, V, R, IC, db, big, True, tag,
+                                  crowded=require_spread is False)
+    rec.update(self=self_rate, misses=misses, dedup_s=dedup_s, launches=by_form,
+               probed_share=share, counted=not counted)
+    db.close()
+    return by_form, path_recs, err, rec
+
+
+def media_path(torch, zt, V, R, IC, tmp):
+    """Phase 15: the image and audio document paths at ``defaults.image_db``
+    and ``defaults.audio_db`` on the card, the full ViT encoder registered as
+    a custom model, and the CLI. Returns kernel 1's entries and the record."""
+    import contextlib
+    import io
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    import numpy as np
+    from zebra_tpu_torch.cli import main as cli_main
+    from zebra_tpu_torch.models import audio as MA
+    from zebra_tpu_torch.models import image as MI
+    from zebra_tpu_torch.models.base import register_model
+
+    media_availability()
+    entries, rec = [], {}
+    spawn = multiprocessing.get_context("spawn")
+    with ProcessPoolExecutor(os.cpu_count(), mp_context=spawn) as pool:
+        t0 = time.perf_counter()
+        clips = list(pool.map(make_clip, range(AUDIO_DOCS + AUDIO_QUERIES), chunksize=256))
+        flacs = pool.map(flac_bytes, clips[:AUDIO_FLAC], chunksize=8)
+        wide = pool.map(make_wide_wav, range(WIDE_DOCS + WIDE_QUERIES), chunksize=16)
+        images = list(pool.map(make_image, range(IMAGE_DOCS + IMAGE_QUERIES), chunksize=256))
+        flacs, wide = list(flacs), list(wide)
+    print(f"media data: {len(images)} synthetic JPEG images (mean "
+          f"{np.mean([len(b) for b in images]) / 1024:.1f} KiB), {len(clips)} clips of "
+          f"{AUDIO_SAMPLES / AUDIO_RATE:.0f} s at {AUDIO_RATE} Hz and their first {len(flacs)} "
+          f"as FLAC, {len(wide)} clips of {WIDE_SAMPLES / AUDIO_RATE:.0f} s as WAV in "
+          f"{time.perf_counter() - t0:.2f} s ({os.cpu_count()} spawned workers)")
+
+    # images: defaults.image_db (embeddings_mean, cosine, IVF at the defaults)
+    db = zt.defaults.image_db(os.path.join(tmp, "image.zebra"))
+    cpu_model = MI.VitImageModel(device="cpu")
+    status = db.model_status()
+    print(f"image model_status: {json.dumps(status)}")
+    check(db.config.dim == 768 and db.config.metric == "cosine", "the image defaults changed")
+    tower = db.model.tower()
+    px = db.model.pixels(images[:db.model.batch_size])
+    with torch.inference_mode():
+        fwd_ms = time_ms(torch, lambda: tower(px), 20)
+    flops = tower.flops(db.model.batch_size)
+    print(f"image tower forward ({db.model.mode}), a padded batch of {db.model.batch_size} "
+          f"(CUDA events, f32, TF32 off): {fwd_ms:.3f} ms; {flops / 1e9:.1f} GFLOP, f32 bound "
+          f"{flops / PEAK_F32 * 1e3:.3f} ms")
+    by_form, recs, err, rec["image"] = document_path(
+        torch, zt, V, R, IC, db, cpu_model, images[:IMAGE_DOCS], images[IMAGE_DOCS:],
+        "image ")
+    rec["image"]["forward_ms"] = fwd_ms
+    entries.append(path_entry("image documents (D=768, cosine, P=2, k=10)", by_form, recs,
+                              err))
+
+    # the full encoder, registered as a custom model
+    register_model("vit-base-patch16-224-cls", lambda: MI.VitImageModel(mode="encoder_cls"))
+    enc_db = zt.Database.create(os.path.join(tmp, "encoder.zebra"), zt.DatabaseConfig(
+        dim=768, metric="cosine", model="vit-base-patch16-224-cls"))
+    model = enc_db.model
+    docs = images[:ENCODER_DOCS]
+    t0 = time.perf_counter()
+    enc_ids = enc_db.insert_documents(docs)
+    enc_s = time.perf_counter() - t0
+    tower = model.tower()
+    px = model.pixels(docs[: model.batch_size])
+    with torch.inference_mode():
+        enc_ms = time_ms(torch, lambda: tower(px), 10)
+    flops = tower.flops(model.batch_size)
+    enc_bound = flops / PEAK_F32 * 1e3
+    card = model.embed_documents(docs[:64])
+    cpu_enc = MI.VitImageModel(mode="encoder_cls", device="cpu")
+    enc_err = float(np.abs(card - cpu_enc.embed_documents(docs[:64])).max())
+    hits = enc_db.query_documents(docs[:256], 1)
+    enc_self = float(np.mean([hits[q] == {enc_ids[q]: docs[q]} for q in range(256)]))
+    print(f"encoder_cls database (register_model, {len(tower.blocks)} blocks): insert of "
+          f"{ENCODER_DOCS} images {enc_s:.2f} s; forward of a padded batch of "
+          f"{model.batch_size} {enc_ms:.3f} ms (CUDA events; {flops / 1e12:.3f} TFLOP, f32 "
+          f"bound {enc_bound:.3f} ms, {enc_bound / enc_ms:.3f} of it); card vs CPU on 64 "
+          f"images: max abs err {enc_err:.3g} (<= {MEDIA_TOWER_ATOL}); self-retrieval "
+          f"{enc_self:.4f} over 256")
+    check(enc_err <= MEDIA_TOWER_ATOL and len(enc_db) == ENCODER_DOCS,
+          "the encoder tower on the card differs from the CPU's")
+    rec["encoder"] = {"insert_s": enc_s, "forward_ms": enc_ms, "bound_ms": enc_bound,
+                      "err": enc_err, "self": enc_self}
+    enc_db.close()
+    del enc_db, model, tower, px, cpu_enc
+    torch.cuda.empty_cache()
+
+    # audio: defaults.audio_db (the spectrogram and the tower on the card)
+    wavs = [wav_bytes(c) for c in clips]
+    db = zt.defaults.audio_db(os.path.join(tmp, "audio.zebra"))
+    print(f"audio model_status: {json.dumps(db.model_status())}")
+    model = db.model
+    host = np.stack([MA.pad_samples(MA.audio_to_data(w)[0]) for w in wavs[:256]])
+    spec_card = MA.spectrogram(torch.from_numpy(host).to(model.device)).cpu()
+    spec_err = float((spec_card - MA.spectrogram(torch.from_numpy(host))).abs().max())
+    twins = model.embed_documents(flacs)
+    first = model.embed_documents(wavs[:AUDIO_FLAC])
+    twin_equal = np.array_equal(twins.view(np.uint32), first.view(np.uint32))
+    print(f"audio: spectrogram card vs CPU on 256 clips: max abs err {spec_err:.3g} (<= "
+          f"{SPECTROGRAM_ATOL}); {len(flacs)} FLAC twins (mean "
+          f"{np.mean([len(f) for f in flacs]) / 1024:.1f} KiB against "
+          f"{len(wavs[0]) / 1024:.1f} KiB WAV) embed bitwise as their WAV clips: "
+          f"{twin_equal}")
+    check(spec_err <= SPECTROGRAM_ATOL, "the card's spectrogram differs from the CPU's")
+    check(twin_equal, "a FLAC clip embeds other than its WAV twin")
+    cpu_model = MA.VitAudioModel(device="cpu")
+    by_form, recs, err, rec["audio"] = document_path(
+        torch, zt, V, R, IC, db, cpu_model, wavs[:AUDIO_DOCS], wavs[AUDIO_DOCS:], "audio ",
+        require_spread=False)
+    rec["audio"]["spectrogram_err"] = spec_err
+    entries.append(path_entry("audio documents, 2 s clips (D=768, cosine, P=2, k=10)",
+                              by_form, recs, err))
+
+    # audio again, on clips that fill the 30 s window: spread enough to count
+    db = zt.defaults.audio_db(os.path.join(tmp, "audio_wide.zebra"))
+    by_form, recs, err, rec["audio_wide"] = document_path(
+        torch, zt, V, R, IC, db, cpu_model, wide[:WIDE_DOCS], wide[WIDE_DOCS:], "audio 30 s ",
+        remove=WIDE_REMOVE, dup=WIDE_DUP_ROWS, require_spread=True)
+    entries.append(path_entry("audio documents, 30 s clips (D=768, cosine, P=2, k=10)",
+                              by_form, recs, err))
+    del wide
+
+    # the CLI in this process, on the card
+    files = []
+    for i, data in enumerate(images[:2] + wavs[:1]):
+        p = os.path.join(tmp, f"cli{i}.{'wav' if i == 2 else 'jpg'}")
+        with open(p, "wb") as f:
+            f.write(data)
+        files.append(p)
+
+    def cli(*argv):
+        out, err = io.StringIO(), io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = cli_main(list(argv))
+        check(rc == 0, f"cli {' '.join(argv[2:4])} exited {rc}: {err.getvalue()[-2000:]}")
+        return out.getvalue(), time.perf_counter() - t0
+
+    img_db, aud_db = os.path.join(tmp, "cli_i.zebra"), os.path.join(tmp, "cli_a.zebra")
+    out, t_ins = cli("--database-path", img_db, "image", "insert", *files[:2])
+    check("Inserted 2 image document(s) (768-dimensional" in out, f"cli image insert: {out!r}")
+    out, t_q = cli("--database-path", img_db, "image", "query", files[1], "--preview")
+    sixel = "\x1bPq" in out and out.count("\x1b\\") == 1
+    check(sixel, f"cli image query --preview wrote no sixel image: {out[:200]!r}")
+    out, _ = cli("--database-path", aud_db, "audio", "insert", files[2])
+    out, t_a = cli("--database-path", aud_db, "audio", "query", files[2], "--play")
+    check("Query 0:" in out and ("playback unavailable" in out or "bytes" in out),
+          f"cli audio query: {out!r}")
+    print(f"media cli (in this process): image insert of 2 files {t_ins:.2f} s, image query "
+          f"--preview {t_q:.2f} s (sixel written: {sixel}), audio query --play {t_a:.2f} s "
+          f"({out.strip().splitlines()[-2].strip() if 'playback' in out else 'played'})")
+    return entries, rec
+
+
 def kernels_record(forms, path_forms, ivf_total, lsh_run, lsh_rec, wave_forms, path_recs,
                    wave_by_form, wave_launches, aug_launches, aug_by_form, aug_forms):
     """The kernels' JSON record: one entry per TPU kernel, each with its
@@ -2570,6 +3476,9 @@ def main() -> int:
     device = torch.device("cuda", 0)
     t_start = time.perf_counter()
 
+    def lap(phase):
+        print(f"phase {phase} starts {time.perf_counter() - t_start:.1f} s after the card check")
+
     # phase 2: build, one nvcc per kernel, all at once
     kernels = ("ivf_rerank", "lsh_rerank", "lsh_rerank_slab", "ivf_rerank_wave",
                "ivf_rerank_aug", "ivf_rerank_cluster")
@@ -2588,6 +3497,7 @@ def main() -> int:
                   f"{spills} with spills")
     print_sass_counts(libs)
 
+    lap(3)
     # phase 3: IVF kernel parity and timing, every slab form, both kernel forms
     forms = kernel_parity(torch, V, R, IC, device)
 
@@ -2597,6 +3507,7 @@ def main() -> int:
     print(f"data: {N_ROWS} + {N_QUERIES} x {DIM} (utils.make_data, seed {SEED}) in "
           f"{time.perf_counter() - t0:.2f} s")
 
+    lap(4)
     # phase 4: the IVF path at the library defaults
     pipe_recs = {}
     tmp = tempfile.mkdtemp(prefix="zebra_smoke_")
@@ -2616,9 +3527,11 @@ def main() -> int:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
+    lap(5)
     # phase 5: LSH kernel parity and timing
     lsh_rec = lsh_kernel_parity(torch, LR, device)
 
+    lap(6)
     # phase 6: the LSH path
     tmp = tempfile.mkdtemp(prefix="zebra_smoke_lsh_")
     try:
@@ -2626,9 +3539,11 @@ def main() -> int:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
+    lap(7)
     # phase 7: wave kernel parity and timing, both kernel forms
     wave_forms = wave_kernel_parity(torch, V, TX, IC, device)
 
+    lap(8)
     # phase 8: the gather-refine path through the wave kernel
     tmp = tempfile.mkdtemp(prefix="zebra_smoke_refine_")
     try:
@@ -2646,9 +3561,11 @@ def main() -> int:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
+    lap(9)
     # phase 9: the augmented-slab surface, both kernel forms
     aug_launches, aug_by_form, aug_forms = aug_path(torch, V, TX, IC, device)
 
+    lap(10)
     # phase 10: the bf16 "balanced" tier through kernel 1's bf16 forms
     tmp = tempfile.mkdtemp(prefix="zebra_smoke_balanced_")
     try:
@@ -2670,6 +3587,7 @@ def main() -> int:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
+    lap(11)
     # phase 11: the f32 tier through kernel 1's f32 forms
     tmp = tempfile.mkdtemp(prefix="zebra_smoke_f32_")
     try:
@@ -2691,18 +3609,36 @@ def main() -> int:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
+    lap(13)
     # phase 13: the growing database at the library defaults
     tmp = tempfile.mkdtemp(prefix="zebra_smoke_growth_")
     try:
         growth_forms, pipe_recs["growth"] = growth_path(torch, zt, V, R, tmp, base, queries)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+    lap(14)
+    # phase 14: the exact tier and the elementwise metrics on the same rows
+    tmp = tempfile.mkdtemp(prefix="zebra_smoke_flat_")
+    try:
+        pipe_recs["flat"] = flat_path(torch, zt, V, TB, R, tmp, base, queries)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     del data, base, queries
 
+    lap(12)
     # phase 12: the text document path (defaults.text_db, BGE-small on the card)
     tmp = tempfile.mkdtemp(prefix="zebra_smoke_text_")
     try:
         text_entry, pipe_recs["text"] = text_path(torch, zt, V, R, IC, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    lap(15)
+    # phase 15: the image and audio document paths (ViT on the card), the CLI
+    tmp = tempfile.mkdtemp(prefix="zebra_smoke_media_")
+    try:
+        media_entries, pipe_recs["media"] = media_path(torch, zt, V, R, IC, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     growth_launches = sum(growth_forms.values())
@@ -2712,7 +3648,12 @@ def main() -> int:
           f"{lsh_run['launches']} (slab-major form {lsh_run['launches_slab']}), "
           f"ivf_rerank_wave {wave_launches} {wave_by_form}, ivf_rerank_aug {aug_launches} "
           f"{aug_by_form}, ivf_rerank {text_entry['launches']} {pipe_recs['text']['launches']} "
-          f"(text documents) over their paths; the whole run took "
+          f"(text documents), {media_entries[0]['launches']} "
+          f"{pipe_recs['media']['image']['launches']} (image documents), "
+          f"{media_entries[1]['launches']} {pipe_recs['media']['audio']['launches']} (audio "
+          f"documents, 2 s clips) and {media_entries[2]['launches']} "
+          f"{pipe_recs['media']['audio_wide']['launches']} (audio documents, 30 s clips) over "
+          f"their paths; the whole run took "
           f"{time.perf_counter() - t_start:.0f} s after the card check")
 
     print("pipeline: " + json.dumps(pipe_recs | {"lsh": lsh_run["pipeline"]}))
@@ -2722,6 +3663,7 @@ def main() -> int:
         lsh_run, lsh_rec, wave_forms, path_recs, wave_by_form, wave_launches, aug_launches,
         aug_by_form, aug_forms)
     record["kernels"].append(text_entry)
+    record["kernels"].extend(media_entries)
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

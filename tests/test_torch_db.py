@@ -309,10 +309,15 @@ def test_construction_needs_a_device_without_cuda(tmp_path, monkeypatch):
 
 
 def test_unported_surfaces_raise(tmp_path):
-    """The document surfaces work on the port now (``tests/test_torch_documents.py``
-    holds them to the JAX package); what is left unported raises naming its
-    ROADMAP entry: the image and audio towers (queue 1, item 9) and the flat
-    index."""
+    """The document surfaces work on the port (``tests/test_torch_documents.py``
+    holds them to the JAX package), and so do the image and audio towers and
+    the flat index now (``tests/test_torch_media.py``, ``tests/test_torch_flat.py``);
+    what is left unported raises naming its ROADMAP entry: sharding."""
+    import io
+    import wave
+
+    from PIL import Image
+
     db = T.Database.create(str(tmp_path / "u.zebra"),
                            T.DatabaseConfig(dim=8, model="hash-8"), device="cpu")
     ids = db.insert_documents([b"x", b"y"])
@@ -321,14 +326,24 @@ def test_unported_surfaces_raise(tmp_path):
     assert db.query_vectors(db.model.embed(b"y"))[0] == {ids[1]: b"y"}
     assert db.query(db.model.embed(b"x"), 1, with_documents=True)[0][0][2] == b"x"
     assert db.model_status()["model"] == "hash-8"
-    for name in ("vit-base-patch16-224", "vit-audio"):
+    png, clip = io.BytesIO(), io.BytesIO()
+    Image.fromarray(np.arange(48 * 64 * 3, dtype=np.uint8).reshape(48, 64, 3)).save(png, "PNG")
+    with wave.open(clip, "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(16000)
+        w.writeframes((np.sin(np.arange(8000) / 9.0) * 9000).astype("<i2").tobytes())
+    for name, doc in (("vit-base-patch16-224", png.getvalue()), ("vit-audio", clip.getvalue())):
         media = T.Database.create(str(tmp_path / f"{name}.zebra"),
                                   T.DatabaseConfig(dim=768, model=name), device="cpu")
-        for call in (lambda: media.model, lambda: media.model_status(),
-                     lambda: media.insert_documents([b"x"])):
-            with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 9"):
-                call()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.Database.create(str(tmp_path / "f.zebra"),
-                          T.DatabaseConfig(dim=8, index=T.IndexOptions(index_type="flat")),
+        assert media.model.name == name and media.model_status()["model"] == name
+        (mid,) = media.insert_documents([doc])
+        assert media.query_documents([doc]) == {0: {mid: doc}}
+    flat = T.Database.create(str(tmp_path / "f.zebra"),
+                             T.DatabaseConfig(dim=8, index=T.IndexOptions(index_type="flat")),
+                             device="cpu")
+    fids = flat.insert_vectors(np.eye(8, dtype=np.float32))
+    assert flat.query(np.eye(8, dtype=np.float32)[5], 1)[0][0][0] == fids[5]
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, sharding"):
+        T.Database.create(str(tmp_path / "s.zebra"), T.DatabaseConfig(dim=8, shards=2),
                           device="cpu")

@@ -270,10 +270,13 @@ def test_defaults_are_the_jax_packages():
 
 
 def test_default_databases_pass_their_device(tmp_path):
+    """The image and audio defaults put the index and the tower on the
+    device they are given (the towers' answers: ``tests/test_torch_media.py``)."""
     db = TD.DefaultImageDatabase.open_or_create(str(tmp_path / "i.zebra"), device="cpu")
     assert db.index.device.type == "cpu" and db.config.model == "vit-base-patch16-224"
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 9"):
-        db.insert_documents([b"pixels"])
+    assert db.model.device.type == "cpu" and db.model.batch_size == 32
     audio = TD.audio_db(str(tmp_path / "a.zebra"), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 9"):
-        audio.model_status()
+    assert audio.model.device.type == "cpu" and audio.model.batch_size == 16
+    status = audio.model_status()
+    assert status["model"] == "vit-audio" and not status["semantic"]
+    assert any("random-init ViT" in d for d in status["degradations"])

@@ -237,12 +237,16 @@ def test_reopen_restores_the_allocator_and_boost(tmp_path):
 
 
 def test_int8_and_flat_are_refused(tmp_path):
+    """Int8 stays refused on LSH; flat (an LSHIndex whose query is the exact
+    scan) is created and queried."""
     with pytest.raises(ValueError, match="ivf backend only"):
         TL.LSHIndex(dim=8, options=T.IndexOptions(index_type="lsh", dtype="int8"), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.Database.create(str(tmp_path / "f.zebra"),
-                          T.DatabaseConfig(dim=8, index=T.IndexOptions(index_type="flat")),
-                          device="cpu")
+    db = T.Database.create(str(tmp_path / "f.zebra"),
+                           T.DatabaseConfig(dim=8, index=T.IndexOptions(index_type="flat")),
+                           device="cpu")
+    assert isinstance(db.index, TL.LSHIndex) and db.index.options.index_type == "flat"
+    ids = db.insert_vectors(np.eye(8, dtype=np.float32))
+    assert [row[0][0] for row in db.query(np.eye(8, dtype=np.float32)[2:4], 1)] == ids[2:4]
 
 
 # -- databases crossing between the packages ---------------------------------

@@ -74,12 +74,6 @@ def test_registry_caches_by_name_and_device():
         JBASE.DIM_BGESMALL_EN_1_5, JBASE.DIM_VIT_BASE_PATCH16_224)
 
 
-@pytest.mark.parametrize("name", ["vit-base-patch16-224", "vit-audio"])
-def test_unported_towers_name_their_roadmap_item(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 9"):
-        TBASE.get_model(name, device="cpu")
-
-
 def test_text_tower_needs_a_device_without_cuda():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         TT.BGESmallEn15()

@@ -87,11 +87,6 @@ def test_pairwise_matches_jax(rng, metric):
     np.testing.assert_allclose(td.numpy(), np.asarray(jd), rtol=RTOL, atol=1e-5)
 
 
-def test_elementwise_metrics_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TD.pairwise(torch.zeros(1, 4), torch.zeros(2, 4), metric="manhattan")
-
-
 def _int8_slab(rng, S, D):
     v8 = rng.integers(-127, 128, (S, D)).astype(np.int8)
     r8 = rng.integers(-127, 128, (S, D)).astype(np.int8)

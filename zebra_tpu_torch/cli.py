@@ -12,19 +12,20 @@ and come before the modality. The port runs on the card unless
 ``--device cpu`` asks for the CPU. Batch ingest takes ``--batch-size``
 (default 100), queries ``--number-of-results`` / ``-n`` (default 1) and
 ``--output-dir`` (retrieved image / audio blobs are written there).
-
-The image and audio towers are not ported yet: their verbs that embed reach
-the model, which raises ``NotImplementedError`` naming ROADMAP.md queue 1,
-item 9, and ``main`` prints that as ``error: ...`` and returns 1. Their
-``--preview`` (sixel rendering) and ``--play`` (system audio player) flags
-are registered and wait with the towers.
+``image query --preview`` writes each hit as sixel graphics to standard
+output (the reference draws hits with viuer); ``audio query --play`` decodes
+each hit through the audio model's chain and plays it as PCM WAV through the
+first system player found (aplay, paplay, afplay; the reference plays with
+rodio).
 """
 
 from __future__ import annotations
 
 import argparse
+import io
 import json
 import os
+import subprocess
 import sys
 
 from zebra_tpu_torch.utils import Stopwatch
@@ -126,6 +127,17 @@ def _cmd_query(args) -> int:
                 print(f"  [{doc_id.hex()[:12]}] {doc.decode('utf-8', errors='replace')}")
                 continue
             print(f"  [{doc_id.hex()[:12]}] {len(doc)} bytes")
+            if args.modality == "image" and getattr(args, "preview", False):
+                try:
+                    from zebra_tpu_torch.sixel import sixel_encode
+
+                    sys.stdout.write(sixel_encode(doc) + "\n")
+                except Exception as e:  # a corrupt blob, or no Pillow to decode it
+                    print(f"    (preview failed: {e})")
+            if args.modality == "audio" and getattr(args, "play", False):
+                err = _play_audio(doc)
+                if err:
+                    print(f"    (playback unavailable: {err}; use --output-dir to extract)")
             if args.output_dir:
                 os.makedirs(args.output_dir, exist_ok=True)
                 out = os.path.join(args.output_dir, f"{doc_id.hex()}.bin")
@@ -134,6 +146,45 @@ def _cmd_query(args) -> int:
                 print(f"    -> {out}")
     print(f"Queried {len(queries)} {args.modality} document(s) in {elapsed}.")
     return 0
+
+
+def _play_audio(doc: bytes) -> str | None:
+    """Play one retrieved audio blob through the first system player on the
+    PATH, after decoding it through the audio model's chain and writing it as
+    16-bit PCM WAV (so stored mp3 / FLAC / ... play as WAV-only players take
+    them). Returns what went wrong, or None when it played."""
+    import shutil
+    import tempfile
+    import wave
+
+    import numpy as np
+
+    try:
+        from zebra_tpu_torch.models.audio import audio_to_data
+
+        samples, rate = audio_to_data(doc)
+        pcm = (np.clip(samples, -1.0, 1.0) * 32767.0).astype("<i2").tobytes()
+        buf = io.BytesIO()
+        with wave.open(buf, "wb") as w:
+            w.setnchannels(1)
+            w.setsampwidth(2)
+            w.setframerate(rate)
+            w.writeframes(pcm)
+    except Exception as e:
+        return f"decode: {e}"
+    for player in ("aplay", "paplay", "afplay"):
+        path = shutil.which(player)
+        if not path:
+            continue
+        with tempfile.NamedTemporaryFile(suffix=".wav") as f:
+            f.write(buf.getvalue())
+            f.flush()
+            try:
+                subprocess.run([path, f.name], check=True, timeout=300, capture_output=True)
+                return None
+            except (OSError, subprocess.SubprocessError) as e:
+                return f"{player}: {e}"
+    return "no system audio player (aplay/paplay/afplay) on PATH"
 
 
 def _cmd_clear(args) -> int:
@@ -230,7 +281,8 @@ def main(argv: list[str] | None = None) -> int:
     except FileNotFoundError as e:
         print(f"error: {e.filename or e}: no such file", file=sys.stderr)
         return 1
-    except (ValueError, NotImplementedError, RuntimeError) as e:
+    except (ValueError, NotImplementedError, RuntimeError, OSError) as e:
+        # OSError: a file Pillow cannot identify as an image
         print(f"error: {e}", file=sys.stderr)
         return 1
 

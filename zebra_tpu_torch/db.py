@@ -35,8 +35,8 @@ device's default stream, as every caller's), so the card runs a capture
 before any in-place write queued after it. ``wait_for_fold`` and
 ``wait_for_retrain`` join them; ``close`` and process exit drain them.
 
-Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP.md
-entry, queue 1): the image and audio towers (item 9) and sharding (item 10).
+Not ported yet: sharding (``shards > 1`` raises ``NotImplementedError``
+naming ROADMAP.md queue 1).
 """
 
 from __future__ import annotations

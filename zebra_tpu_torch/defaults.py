@@ -5,8 +5,6 @@
   audio: 768-d, cosine,     audio ViT (spectrogram)
 
 Every factory takes ``device`` (None: the card) for the index and the model.
-The image and audio towers are not ported yet: their databases open, and
-their model raises ``NotImplementedError`` (ROADMAP.md queue 1, item 9).
 """
 
 from __future__ import annotations

@@ -1,5 +1,6 @@
-"""ANN index backends of the torch port: IVF and LSH. The flat index type is
-not ported yet (ROADMAP.md queue 1)."""
+"""ANN index backends of the torch port: "ivf" (learned partitions), "lsh"
+(bucket tables) and "flat" (an ``LSHIndex`` whose every query is the exact
+scan, as in the JAX package)."""
 
 from __future__ import annotations
 
@@ -10,15 +11,12 @@ from zebra_tpu_torch.config import IndexOptions
 from zebra_tpu_torch.index.ivf_host import IVFIndex
 from zebra_tpu_torch.index.lsh import LSHIndex
 
-_BACKENDS = {"ivf": IVFIndex, "lsh": LSHIndex}
+_BACKENDS = {"ivf": IVFIndex, "lsh": LSHIndex, "flat": LSHIndex}
 
 
 def _backend(index_type: str):
     if index_type not in _BACKENDS:
-        raise NotImplementedError(
-            f"index_type={index_type!r} is not ported yet: the torch port has "
-            f"{sorted(_BACKENDS)} (ROADMAP.md queue 1: the flat tier)"
-        )
+        raise ValueError(f"unknown index_type {index_type!r}; choose from {sorted(_BACKENDS)}")
     return _BACKENDS[index_type]
 
 

@@ -39,6 +39,7 @@ import numpy as np
 import torch
 
 from zebra_tpu_torch.config import IndexOptions
+from zebra_tpu_torch.ops import distances as D
 from zebra_tpu_torch.profiling import timed
 from zebra_tpu_torch.utils import fsync_write, next_pow2, uuid7_batch
 
@@ -250,6 +251,7 @@ class BaseVectorIndex:
 
     def __init__(self, dim: int, metric: str = "cosine", options: IndexOptions | None = None,
                  metric_power: float = 3.0, device: str | torch.device | None = None):
+        D.check_metric(metric)
         self.dim = int(dim)
         self.metric = metric
         self.metric_power = float(metric_power)

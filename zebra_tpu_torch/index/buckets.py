@@ -221,9 +221,11 @@ def delete_slots(state: LSHState, slots: torch.Tensor) -> None:
 
 
 def _chunked_rerank(state: LSHState, q: torch.Tensor, cand: torch.Tensor,
-                    cand_valid: torch.Tensor, k: int, metric: str, chunk: int = 2048):
+                    cand_valid: torch.Tensor, k: int, metric: str, chunk: int = 2048,
+                    power: float = 3.0):
     """Eager re-rank (the JAX package's "xla" path): gather candidate rows
-    chunk by chunk, full-f32 dots, distances from stored norms, running
+    chunk by chunk, full-f32 dots and distances from stored norms (an
+    elementwise metric: ``distances.rowwise`` of the gathered rows), running
     top-k. Any k. Returns ``(dists, slots, valid)`` ``[B, k]``."""
     B, M = cand.shape
     dev = q.device
@@ -237,8 +239,11 @@ def _chunked_rerank(state: LSHState, q: torch.Tensor, cand: torch.Tensor,
     for s in range(0, M, chunk):
         sl = cand[:, s : s + chunk].long()
         idx = torch.clamp(sl, 0, S - 1)
-        dot = torch.einsum("bd,bcd->bc", q32, state.vectors[idx].float())
-        d = D.mxu_from_parts(metric, dot, qn2, state.norms[idx])
+        if metric in D.MXU_METRICS:
+            dot = torch.einsum("bd,bcd->bc", q32, state.vectors[idx].float())
+            d = D.mxu_from_parts(metric, dot, qn2, state.norms[idx])
+        else:
+            d = D.rowwise(q32, state.vectors[idx], metric=metric, power=power)
         td, ti, tv = TK.masked_topk(d, cand_valid[:, s : s + chunk], sl, min(k, sl.shape[1]))
         dk, ik, vk = TK.merge_topk(dk, ik, vk, td, ti, tv, k)
     return dk, ik, vk
@@ -286,15 +291,18 @@ def _candidates(state: LSHState, q: torch.Tensor, num_probes: int, max_candidate
     return cand, cand_valid
 
 
-def _query_chunk_rows(state: LSHState, B: int, width: int, eager: bool) -> int:
+def _query_chunk_rows(state: LSHState, B: int, width: int, eager: bool,
+                      elementwise: bool = False) -> int:
     """Queries per pass, bounding the candidate stage's ``[B, T*P*C]``
     transients and, on the eager path, one chunk's ``[B, 2048, W]`` f32
-    gather. The JAX package splits by a fixed 5 GB; here the budget is a
-    quarter of the device's free memory (``torch.cuda.mem_get_info``), or
-    1 GiB on the CPU. The split changes no result: queries are independent."""
+    gather (an elementwise metric holds a few more intermediates of that
+    size: 24 bytes an element in all). The JAX package splits by a fixed 5
+    GB; here the budget is a quarter of the device's free memory
+    (``torch.cuda.mem_get_info``), or 1 GiB on the CPU. The split changes no
+    result: queries are independent."""
     per_row = width * _CAND_BYTES
     if eager:
-        per_row += 2048 * state.dim * 8
+        per_row += 2048 * state.dim * (24 if elementwise else 8)
     dev = state.device
     budget = torch.cuda.mem_get_info(dev)[0] // 4 if dev.type == "cuda" else 1 << 30
     return max(1, min(B, budget // per_row))
@@ -302,7 +310,8 @@ def _query_chunk_rows(state: LSHState, B: int, width: int, eager: bool) -> int:
 
 def query(state: LSHState, q: torch.Tensor, k: int, metric: str = "cosine",
           num_probes: int = 8, rerank: str = "eager", max_candidates: int = 0,
-          lossless: bool = False, dim: int | None = None, occupied: int | None = None):
+          lossless: bool = False, dim: int | None = None, occupied: int | None = None,
+          power: float = 3.0):
     """Approximate top-k: hash -> multi-probe gather -> dedup -> exact
     re-rank + top-k.
 
@@ -310,7 +319,9 @@ def query(state: LSHState, q: torch.Tensor, k: int, metric: str = "cosine",
     takes :func:`lsh_rerank.lsh_rerank` (the CUDA kernel for card tensors,
     its plain version for CPU tensors) for k <= 128, reading only the first
     ``dim`` (default W) columns of each row; a wider k takes the eager path
-    and is counted in :data:`EAGER_LARGE_K`. ``max_candidates <= 0`` keeps
+    and is counted in :data:`EAGER_LARGE_K`. The nine elementwise metrics
+    always take the eager path (``power``: minkowski's and p_norm's
+    exponent). ``max_candidates <= 0`` keeps
     every probed entry; ``lossless`` compacts without dropping any.
     ``occupied`` is the host's count of allocated slab slots (slots are a
     bump allocator, so every stored slot lies below it; default: the slab's
@@ -324,23 +335,23 @@ def query(state: LSHState, q: torch.Tensor, k: int, metric: str = "cosine",
     global EAGER_LARGE_K
     from zebra_tpu_torch.ops import lsh_rerank as LR
 
-    D.check_metric(metric)
     full = state.num_tables * num_probes * state.bucket_capacity
     if max_candidates <= 0:
         max_candidates = full
-    use_kernel = rerank == "cuda" and k <= LR.MAX_K
-    if rerank == "cuda" and not use_kernel:
+    mxu = metric in D.MXU_METRICS
+    use_kernel = rerank == "cuda" and mxu and k <= LR.MAX_K
+    if rerank == "cuda" and mxu and not use_kernel:
         EAGER_LARGE_K += 1
     dim = dim or state.dim
     B = q.shape[0]
-    step = _query_chunk_rows(state, B, full, eager=not use_kernel)
+    step = _query_chunk_rows(state, B, full, eager=not use_kernel, elementwise=not mxu)
     S = state.slab_capacity
     outs = []
     for s in range(0, B, step):
         qc = q[s : s + step].float()
         cand, cand_valid = _candidates(state, qc, num_probes, max_candidates, lossless)
         if not use_kernel:
-            outs.append(_chunked_rerank(state, qc, cand, cand_valid, k, metric))
+            outs.append(_chunked_rerank(state, qc, cand, cand_valid, k, metric, power=power))
             continue
         norms = state.norms[torch.clamp(cand, 0, S - 1).long()]
         d, pos = LR.lsh_rerank(state.vectors, qc[:, :dim].contiguous(), cand.int().contiguous(),
@@ -355,11 +366,13 @@ def query(state: LSHState, q: torch.Tensor, k: int, metric: str = "cosine",
 
 
 def brute_force(state: LSHState, q: torch.Tensor, k: int, metric: str = "cosine",
-                chunk: int = 8192):
-    """Exact top-k over the whole slab in full f32 (the recall oracle)."""
+                power: float = 3.0, chunk: int = 8192, precision: str = "highest"):
+    """Exact top-k over the whole slab (the flat index's query and the recall
+    oracle); ``precision`` as in :func:`zebra_tpu_torch.ops.scan.exact_scan`."""
     from zebra_tpu_torch.ops.scan import exact_scan
 
-    return exact_scan(state.vectors, state.valid, q, k, metric=metric, chunk=chunk)
+    return exact_scan(state.vectors, state.valid, q, k, metric=metric, power=power,
+                      chunk=chunk, precision=precision)
 
 
 def num_valid(state: LSHState) -> int:

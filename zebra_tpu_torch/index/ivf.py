@@ -466,13 +466,15 @@ def rescore_probes(state: IVFState, q32: torch.Tensor, cand: torch.Tensor, P: in
 
 
 def _query_chunk_rows(state: IVFState, B: int, k: int, eager: bool, kk: int = 0,
-                      probes: int = 0) -> int:
+                      probes: int = 0, elementwise: bool = False) -> int:
     """Queries per pass, bounding the per-pass transients: the [B, K] score
     pair (8 B/row/cluster), the cluster-major re-rank's [B, P*C] f32 distance
     buffer and its sorted pairs and work items (~64 B a probe), under refine
     (``kk`` > k) the [B, kk, D] int8 residual gather and its f32 dot operand
     (3*kk*D bytes a row, the JAX package's slack) and, on the eager path, one
-    probe's [B, C, D] gather in f32 plus its residual. The JAX package
+    probe's [B, C, D] gather in f32 plus its residual (an elementwise metric
+    holds a few more [B, C, D] f32 intermediates: 24 bytes an element in
+    all, which keeps each at or under a sixth of the budget). The JAX package
     hard-codes a budget for a 16 GB TPU; here it is a quarter of the device's
     free memory (``torch.cuda.mem_get_info``), or 1 GiB on the CPU."""
     kk = max(kk, k)
@@ -480,7 +482,7 @@ def _query_chunk_rows(state: IVFState, B: int, k: int, eager: bool, kk: int = 0,
     if kk != k:
         per_row += 3 * kk * state.dim
     if eager:
-        per_row += state.cluster_capacity * state.dim * 12
+        per_row += state.cluster_capacity * state.dim * (24 if elementwise else 12)
     dev = state.device
     budget = torch.cuda.mem_get_info(dev)[0] // 4 if dev.type == "cuda" else 1 << 30
     return max(1, min(B, budget // per_row))
@@ -488,7 +490,8 @@ def _query_chunk_rows(state: IVFState, B: int, k: int, eager: bool, kk: int = 0,
 
 def query(state: IVFState, q: torch.Tensor, k: int, metric: str = "cosine",
           num_probes: int = 8, rerank: str = "eager", probe_sel: str = "auto",
-          refine_k: int = 0, refine_scan: bool = False, spare_used: bool | None = None):
+          refine_k: int = 0, refine_scan: bool = False, spare_used: bool | None = None,
+          power: float = 3.0):
     """Approximate top-k: score centroids -> top-P blocks -> exact re-rank ->
     spare merge -> refine.
 
@@ -503,14 +506,16 @@ def query(state: IVFState, q: torch.Tensor, k: int, metric: str = "cosine",
     (:func:`experimental_ivf.ivf_rerank_wave`), except in scan mode, which
     it has no form for and which falls to the probe kernel. Either needs the
     scanned width (``refine_k`` or k) <= 128; a wider one takes the eager
-    block path and is counted in :data:`EAGER_LARGE_K`. ``spare_used`` is the
+    block path and is counted in :data:`EAGER_LARGE_K`. The nine elementwise
+    metrics never take a kernel: their cells are chosen by sql2 (as the
+    insert placed them) and their blocks re-ranked on the eager path;
+    ``power`` is minkowski's and p_norm's exponent. ``spare_used`` is the
     caller's host mirror of a non-empty spare (None: read ``counts[-1]``, a
     sync).
 
     Returns ``(dists [B, k], slots [B, k] int64, valid [B, k])``.
     """
     global EAGER_LARGE_K
-    D.check_metric(metric)
     B = q.shape[0]
     P = min(num_probes, state.num_clusters)
     scan_res = refine_scan and state.residual is not None
@@ -519,16 +524,19 @@ def query(state: IVFState, q: torch.Tensor, k: int, metric: str = "cosine",
     kk = refine_k if (state.residual is not None and refine_k > k) else k
     if spare_used is None:
         spare_used = bool(state.counts[-1] > 0)
-    use_kernel = rerank in ("cuda", "cuda2") and kk <= 128
-    if rerank in ("cuda", "cuda2") and not use_kernel:
+    mxu = metric in D.MXU_METRICS
+    use_kernel = rerank in ("cuda", "cuda2") and mxu and kk <= 128
+    if rerank in ("cuda", "cuda2") and mxu and not use_kernel:
         EAGER_LARGE_K += 1
-    step = _query_chunk_rows(state, B, k, eager=not use_kernel, kk=kk, probes=P)
+    step = _query_chunk_rows(state, B, k, eager=not use_kernel, kk=kk, probes=P,
+                             elementwise=not mxu)
+    sel_metric = metric if mxu else "sql2"
     outs = []
     for s in range(0, B, step):
         q32 = q[s : s + step].float()
-        probes = select_probes(state, q32, P, metric, probe_sel)
+        probes = select_probes(state, q32, P, sel_metric, probe_sel)
         if not use_kernel:
-            res = _block_rerank(state, q32, probes, kk, metric, scan_res)
+            res = _block_rerank(state, q32, probes, kk, metric, scan_res, power)
         elif rerank == "cuda2" and not scan_res:
             from zebra_tpu_torch.ops.experimental_ivf import ivf_rerank_wave
 
@@ -538,17 +546,19 @@ def query(state: IVFState, q: torch.Tensor, k: int, metric: str = "cosine",
 
             res = ivf_rerank(state, q32, probes, kk, metric, scan_residual=scan_res)
         if spare_used:
-            res = _merge_spare(state, q32, *res, kk, metric, scan_res)
-        outs.append(_refine_topk(state, q32, *res, k, metric))
+            res = _merge_spare(state, q32, *res, kk, metric, scan_res, power)
+        outs.append(_refine_topk(state, q32, *res, k, metric, power))
     if len(outs) == 1:
         return outs[0]
     return tuple(torch.cat(parts) for parts in zip(*outs))
 
 
-def _block_rerank(state: IVFState, q32, probes, k: int, metric: str, scan_res: bool):
+def _block_rerank(state: IVFState, q32, probes, k: int, metric: str, scan_res: bool,
+                  power: float = 3.0):
     """Eager re-rank (the JAX package's XLA branch, ivf.py:700-768): per
     probe, gather the ``[B, C, D]`` block, take full-f32 dots (dequantised
-    after the dot, plus the residual term in scan mode), select, merge."""
+    after the dot, plus the residual term in scan mode), select, merge. An
+    elementwise metric scores the block's reconstructed f32 rows instead."""
     B = q32.shape[0]
     C = state.cluster_capacity
     dev = q32.device
@@ -559,21 +569,29 @@ def _block_rerank(state: IVFState, q32, probes, k: int, metric: str, scan_res: b
     vk = torch.zeros((B, k), dtype=torch.bool, device=dev)
     for p in range(probes.shape[1]):
         rows = probes[:, p, None] * C + col  # [B, C]
-        dots = torch.einsum("bd,bcd->bc", q32, state.vectors[rows].float())
-        if state.scales is not None:
-            dots = dots * state.scales[rows]
-        if scan_res:
-            lo = torch.einsum("bd,bcd->bc", q32, state.residual[rows].float())
-            dots = dots + state.rscales[rows] * lo
-        d = D.mxu_from_parts(metric, dots, qn2, state.norms[rows])
+        if metric in D.MXU_METRICS:
+            dots = torch.einsum("bd,bcd->bc", q32, state.vectors[rows].float())
+            if state.scales is not None:
+                dots = dots * state.scales[rows]
+            if scan_res:
+                lo = torch.einsum("bd,bcd->bc", q32, state.residual[rows].float())
+                dots = dots + state.rscales[rows] * lo
+            d = D.mxu_from_parts(metric, dots, qn2, state.norms[rows])
+        else:
+            vf = state.vectors[rows].float()
+            if state.scales is not None:
+                vf = vf * state.scales[rows][..., None]
+            if scan_res:
+                vf = vf + state.residual[rows].float() * state.rscales[rows][..., None]
+            d = D.rowwise(q32, vf, metric=metric, power=power)
         td, ti, tv = TK.masked_topk(d, state.valid[rows], rows, min(k, C))
         dk, ik, vk = TK.merge_topk(dk, ik, vk, td, ti, tv, k)
     return dk, ik, vk
 
 
-def _refine_topk(state: IVFState, q32, dk, ik, vk, k: int, metric: str):
+def _refine_topk(state: IVFState, q32, dk, ik, vk, k: int, metric: str, power: float = 3.0):
     """Exact re-rank of an oversampled candidate set on the residual pair
-    (the JAX package's ``_refine_topk``, ivf.py:771-817; MXU metrics).
+    (the JAX package's ``_refine_topk``, ivf.py:771-817).
 
     With value = s*v8 + r*r8, ``dot(q, value) = s*dot(q, v8) + r*dot(q, r8)``.
     The coarse term is recovered by INVERTING the coarse distance with
@@ -581,22 +599,29 @@ def _refine_topk(state: IVFState, q32, dk, ik, vk, k: int, metric: str):
     the pass is one ``[B, kk, D]`` int8 residual gather and one batched f32
     dot. ``|q|^2`` here is the unrounded query's, also where the wave kernel
     formed ``dk`` from the bf16-rounded one: the reference's behaviour, kept.
-    No-op without a residual or when the set is already k wide.
+    An elementwise metric has no inverse: it gathers both int8 slabs and
+    scores the f32 reconstruction. No-op without a residual or when the set
+    is already k wide.
     """
     if state.residual is None or dk.shape[1] <= k:
         return dk, ik, vk
     idx = torch.where(vk, ik, torch.zeros_like(ik))
-    qn2 = (q32 * q32).sum(-1)[:, None]
-    n2 = state.norms[idx]  # refined |value|^2 (insert contract)
-    hi = D.mxu_invert_parts(metric, dk, qn2, n2)
-    lo = torch.einsum("bd,bkd->bk", q32, state.residual[idx].float())
-    d = D.mxu_from_parts(metric, hi + lo * state.rscales[idx], qn2, n2)
+    if metric in D.MXU_METRICS:
+        qn2 = (q32 * q32).sum(-1)[:, None]
+        n2 = state.norms[idx]  # refined |value|^2 (insert contract)
+        hi = D.mxu_invert_parts(metric, dk, qn2, n2)
+        lo = torch.einsum("bd,bkd->bk", q32, state.residual[idx].float())
+        d = D.mxu_from_parts(metric, hi + lo * state.rscales[idx], qn2, n2)
+    else:
+        vf = (state.vectors[idx].float() * state.scales[idx][..., None]
+              + state.residual[idx].float() * state.rscales[idx][..., None])
+        d = D.rowwise(q32, vf, metric=metric, power=power)
     inf = torch.full_like(d, float("inf"))
     return TK.masked_topk(torch.where(vk, d, inf), vk, ik, k)
 
 
 def _merge_spare(state: IVFState, q32, dk, ik, vk, k: int, metric: str,
-                 scan_res: bool = False):
+                 scan_res: bool = False, power: float = 3.0):
     """Fold the shared spare region into partial top-k results (a windowed
     exact scan of ``[spare_start, spare_start + G)``). The residual is scored
     only in scan mode; under refine=N the spare rows get the coarse distance
@@ -608,7 +633,7 @@ def _merge_spare(state: IVFState, q32, dk, ik, vk, k: int, metric: str,
     if G == 0:
         return dk, ik, vk
     td, ti, tv = exact_scan(
-        state.vectors, state.valid, q32, min(k, G), metric=metric, chunk=65536,
+        state.vectors, state.valid, q32, min(k, G), metric=metric, power=power, chunk=65536,
         scales=state.scales,
         norms=state.norms if state.residual is not None else None,
         residual=state.residual if scan_res else None,
@@ -619,13 +644,14 @@ def _merge_spare(state: IVFState, q32, dk, ik, vk, k: int, metric: str,
 
 
 def brute_force(state: IVFState, q: torch.Tensor, k: int, metric: str = "cosine",
-                chunk: int = 8192):
+                power: float = 3.0, chunk: int = 8192, precision: str = "highest"):
     """Exact top-k over the whole slab, scoring the stored reconstruction
     (both slabs for refined int8): the recall oracle."""
     from zebra_tpu_torch.ops.scan import exact_scan
 
     return exact_scan(
-        state.vectors, state.valid, q, k, metric=metric, chunk=chunk,
+        state.vectors, state.valid, q, k, metric=metric, power=power, chunk=chunk,
+        precision=precision,
         scales=state.scales,
         norms=state.norms if state.residual is not None else None,
         residual=state.residual, rscales=state.rscales,

@@ -120,7 +120,6 @@ class IVFIndex(BaseVectorIndex):
     def __init__(self, dim: int, metric: str = "cosine", options: IndexOptions | None = None,
                  metric_power: float = 3.0, device=None):
         super().__init__(dim, metric, options, metric_power, device)
-        D.check_metric(metric)
         r = self.options.refine
         if not (r == "scan" or (isinstance(r, int) and r >= 0)):
             raise ValueError(f"refine must be a non-negative int or 'scan', got {r!r}")
@@ -144,6 +143,12 @@ class IVFIndex(BaseVectorIndex):
         self._paced_train = False
         #: an inline rebuild was refused for its memory (warned once)
         self._rebuild_skip_warned = False
+
+    @property
+    def _cell_metric(self) -> str:
+        """The metric that places rows in cells; it must be the query's probe
+        metric (``ivf.query`` selects by sql2 for an elementwise metric)."""
+        return self.metric if self.metric in D.MXU_METRICS else "sql2"
 
     @property
     def _quant_wire(self) -> bool:
@@ -305,8 +310,7 @@ class IVFIndex(BaseVectorIndex):
         copy; returns the slots as a device tensor (the pipeline reads them
         back two spans behind)."""
         batch = self._ready(staged)
-        # cells are chosen with the query's probe metric (the two must agree)
-        kw = dict(spill=self.options.spill, metric=self.metric)
+        kw = dict(spill=self.options.spill, metric=self._cell_metric)
         if isinstance(batch, tuple):  # the quantised wire
             return V.insert_quant(self.state, *batch, **kw)
         return V.insert(self.state, batch, **kw)
@@ -443,15 +447,17 @@ class IVFIndex(BaseVectorIndex):
         V.delete_slots(self.state, torch.from_numpy(slots).to(self.device))
 
     def _query_device(self, q: torch.Tensor, k: int, exact: bool):
-        """Device search. ``exact`` scans the whole slab (always full f32:
-        ``exact_precision`` and ``approx_topk`` only ever trade accuracy away
-        on the JAX package)."""
+        """Device search. ``exact`` scans the whole slab at ``exact_precision``
+        (``approx_topk`` is accepted and selection stays exact; its wider scan
+        chunk is kept, so ties break as in the JAX package)."""
         if q.shape[1] != self._dev_dim:
             q = torch.nn.functional.pad(q, (0, self._dev_dim - self.dim))
         if exact:
-            return V.brute_force(self.state, q, k, metric=self.metric)
+            return V.brute_force(self.state, q, k, metric=self.metric, power=self.metric_power,
+                                 precision=self.options.exact_precision,
+                                 chunk=131072 if self.options.approx_topk else 8192)
         return V.query(
-            self.state, q, k, metric=self.metric,
+            self.state, q, k, metric=self.metric, power=self.metric_power,
             num_probes=self.options.resolved_probes(), rerank=self.options.rerank,
             probe_sel=self.options.probe_sel, refine_k=self.options.refine_k(k),
             refine_scan=self.options.refine_is_scan(), spare_used=self._spare_used > 0,

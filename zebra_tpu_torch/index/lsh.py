@@ -27,7 +27,6 @@ import torch
 from zebra_tpu_torch.config import IndexOptions
 from zebra_tpu_torch.index import buckets as B
 from zebra_tpu_torch.index.base import _MIN_BATCH, BaseVectorIndex, Staged
-from zebra_tpu_torch.ops import distances as D
 from zebra_tpu_torch.ops import hashing as H
 from zebra_tpu_torch.profiling import timed
 from zebra_tpu_torch.utils import next_pow2
@@ -65,7 +64,6 @@ class LSHIndex(BaseVectorIndex):
     def __init__(self, dim: int, metric: str = "cosine", options: IndexOptions | None = None,
                  metric_power: float = 3.0, device=None):
         super().__init__(dim, metric, options, metric_power, device)
-        D.check_metric(metric)
         if self.options.dtype == "int8":
             raise ValueError(
                 "dtype='int8' is supported by the ivf backend only (the "
@@ -196,9 +194,10 @@ class LSHIndex(BaseVectorIndex):
             return "growth"
         # dropped bucket entries justify a rebuild only where a lever
         # exists: wider codes while the table budget allows, then doubled
-        # bucket depth (bounded at 64x: tight clusters would re-overflow)
+        # bucket depth (bounded at 64x: tight clusters would re-overflow);
+        # flat's vestigial tables are never queried
         overflow = int(st.overflow)  # one scalar read per mutation
-        if overflow > _REBUILD_OVERFLOW * n_live:
+        if self.options.index_type != "flat" and overflow > _REBUILD_OVERFLOW * n_live:
             if self.options.resolved_bits(n_live, capacity=st.bucket_capacity) > st.bits:
                 return "overflow-bits"
             if self._cap_boost < 64:
@@ -260,15 +259,21 @@ class LSHIndex(BaseVectorIndex):
         return mc, mc == 0 and full > 65536
 
     def _query_device(self, q: torch.Tensor, k: int, exact: bool):
-        """Device search on queries padded to the stored width. ``exact``
-        scans the whole slab in full f32."""
+        """Device search on queries padded to the stored width. ``exact``,
+        and every query of a flat index, scans the whole slab at
+        ``exact_precision`` (``approx_topk`` is accepted and selection stays
+        exact; its wider scan chunk is kept, so ties break as in the JAX
+        package)."""
         if q.shape[1] != self._dev_dim:
             q = torch.nn.functional.pad(q, (0, self._dev_dim - self.dim))
-        if exact:
-            return B.brute_force(self.state, q, k, metric=self.metric)
+        if exact or self.options.index_type == "flat":
+            return B.brute_force(self.state, q, k, metric=self.metric, power=self.metric_power,
+                                 precision=self.options.exact_precision,
+                                 chunk=131072 if self.options.approx_topk else 8192)
         probes = self.options.resolved_probes()
         mc, lossless = self._candidate_width(probes)
-        return B.query(self.state, q, k, metric=self.metric, num_probes=probes,
+        return B.query(self.state, q, k, metric=self.metric, power=self.metric_power,
+                       num_probes=probes,
                        rerank=self.options.rerank, max_candidates=mc, lossless=lossless,
                        dim=self.dim, occupied=self._next_slot)
 

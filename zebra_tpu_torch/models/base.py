@@ -13,12 +13,10 @@ import hashlib
 from typing import Callable, Protocol, runtime_checkable
 
 import numpy as np
+import torch
 
 DIM_BGESMALL_EN_1_5 = 384
 DIM_VIT_BASE_PATCH16_224 = 768
-
-#: where the towers the port still lacks are planned
-_TOWERS_ENTRY = "ROADMAP.md queue 1, item 9: the image and audio towers"
 
 
 @runtime_checkable
@@ -74,6 +72,16 @@ class HashEmbeddingModel(BaseModel):
         return {"semantic": False, "degradations": []}
 
 
+def upload(host: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A tower's host batch on ``device``: through pinned memory, without
+    waiting, on the card (the caching host allocator keeps the pinned copy
+    alive until the transfer ends)."""
+    t = torch.from_numpy(host)
+    if device.type != "cuda":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)
+
+
 _REGISTRY: dict[str, Callable[[], EmbeddingModel]] = {}
 _CACHE: dict[tuple[str, str | None], EmbeddingModel] = {}
 
@@ -105,7 +113,12 @@ def _lazy_builtin(name: str, device) -> EmbeddingModel:
         from zebra_tpu_torch.models.text import BGESmallEn15
 
         return BGESmallEn15(device=device)
-    if name in ("vit-base-patch16-224", "vit-audio"):
-        raise NotImplementedError(
-            f"the {name!r} tower is not ported to the torch package yet ({_TOWERS_ENTRY})")
+    if name == "vit-base-patch16-224":
+        from zebra_tpu_torch.models.image import VitImageModel
+
+        return VitImageModel(device=device)
+    if name == "vit-audio":
+        from zebra_tpu_torch.models.audio import VitAudioModel
+
+        return VitAudioModel(device=device)
     raise KeyError(f"unknown embedding model {name!r}")

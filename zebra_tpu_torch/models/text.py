@@ -34,7 +34,7 @@ from torch import nn
 from torch.nn import functional as F
 
 from zebra_tpu_torch.index.base import default_device
-from zebra_tpu_torch.models.base import DIM_BGESMALL_EN_1_5, BaseModel
+from zebra_tpu_torch.models.base import DIM_BGESMALL_EN_1_5, BaseModel, upload
 from zebra_tpu_torch.profiling import logger
 
 VOCAB = 30522
@@ -63,6 +63,48 @@ class LayerNorm(nn.Module):
         return (x - mean) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
 
 
+def self_attention(x: torch.Tensor, query: nn.Linear, key: nn.Linear, value: nn.Linear,
+                   out: nn.Linear, heads: int, mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Multi-head self-attention over ``x [n, L, hidden]`` as Flax's
+    ``MultiHeadDotProductAttention`` computes it: the query scaled by
+    1/sqrt(head dim) before its dot, masked scores (``mask`` False) set to
+    the f32 minimum, softmax, the heads' outputs through ``out``. Shared by
+    the BERT and ViT towers."""
+    n, length, hidden = x.shape
+    hd = hidden // heads
+
+    def split(t):  # [n, L, hidden] -> [n, heads, L, hd]
+        return t.view(n, length, heads, hd).transpose(1, 2)
+
+    q = split(query(x)) / math.sqrt(hd)
+    scores = q @ split(key(x)).transpose(-1, -2)
+    if mask is not None:
+        scores = torch.where(mask, scores, torch.finfo(scores.dtype).min)
+    h = torch.softmax(scores, -1) @ split(value(x))
+    return out(h.transpose(1, 2).reshape(n, length, hidden))
+
+
+def normal_(p: torch.Tensor, std: float, g: torch.Generator) -> None:
+    """Flax's ``normal(std)`` initialiser, drawn from ``g``."""
+    p.copy_(torch.randn(p.shape, generator=g) * std)
+
+
+def init_dense_(module: nn.Module, g: torch.Generator) -> None:
+    """Flax's defaults for every ``nn.Linear`` and :class:`LayerNorm` under
+    ``module``, in module order: lecun-normal weights (truncated at two
+    standard deviations, std 1/sqrt(fan_in), fan_in the Linear's input
+    width), zero biases, unit LayerNorm scales."""
+    for mod in module.modules():
+        if isinstance(mod, nn.Linear):
+            std = 1.0 / math.sqrt(mod.weight.shape[1]) / 0.87962566103423978
+            mod.weight.copy_(nn.init.trunc_normal_(torch.empty(mod.weight.shape), std=std,
+                                                   a=-2 * std, b=2 * std, generator=g))
+            mod.bias.zero_()
+        elif isinstance(mod, LayerNorm):
+            mod.weight.fill_(1.0)
+            mod.bias.zero_()
+
+
 class BertLayer(nn.Module):
     """Self-attention (q/k/v/out projections with bias) and a GELU FFN, each
     followed by a post-LN residual."""
@@ -80,17 +122,8 @@ class BertLayer(nn.Module):
         self.ln2 = LayerNorm(hidden, eps)
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-        n, length, hidden = x.shape
-        hd = hidden // self.heads
-
-        def heads(t):  # [n, L, hidden] -> [n, heads, L, hd]
-            return t.view(n, length, self.heads, hd).transpose(1, 2)
-
-        q = heads(self.query(x)) / math.sqrt(hd)
-        scores = q @ heads(self.key(x)).transpose(-1, -2)
-        scores = torch.where(mask, scores, torch.finfo(scores.dtype).min)
-        h = torch.softmax(scores, -1) @ heads(self.value(x))
-        x = self.ln1(x + self.out(h.transpose(1, 2).reshape(n, length, hidden)))
+        x = self.ln1(x + self_attention(x, self.query, self.key, self.value, self.out,
+                                        self.heads, mask))
         return self.ln2(x + self.fc2(F.gelu(self.fc1(x))))
 
 
@@ -126,25 +159,10 @@ class BertEncoder(nn.Module):
         every projection lecun-normal (truncated at two standard deviations,
         std 1/sqrt(fan_in)), zero biases and unit LayerNorm scales."""
         g = torch.Generator().manual_seed(seed)
-
-        def normal(p, std):
-            p.copy_(torch.randn(p.shape, generator=g) * std)
-
-        def lecun(p):  # a Linear's [out, in] weight: fan_in = in
-            std = 1.0 / math.sqrt(p.shape[1]) / 0.87962566103423978
-            p.copy_(nn.init.trunc_normal_(torch.empty(p.shape), std=std, a=-2 * std,
-                                          b=2 * std, generator=g))
-
-        normal(self.tok_embed.weight, 1.0 / math.sqrt(self.tok_embed.weight.shape[1]))
-        normal(self.pos_embed, 0.02)
-        normal(self.tt_embed, 0.02)
-        for mod in self.modules():
-            if isinstance(mod, nn.Linear):
-                lecun(mod.weight)
-                mod.bias.zero_()
-            elif isinstance(mod, LayerNorm):
-                mod.weight.fill_(1.0)
-                mod.bias.zero_()
+        normal_(self.tok_embed.weight, 1.0 / math.sqrt(self.tok_embed.weight.shape[1]), g)
+        normal_(self.pos_embed, 0.02, g)
+        normal_(self.tt_embed, 0.02, g)
+        init_dense_(self, g)
         return self
 
 
@@ -347,12 +365,6 @@ class BGESmallEn15(BaseModel):
         """The cached encoder module on this model's device."""
         return _encoder(self.seed, str(self.device))
 
-    def _upload(self, a: np.ndarray) -> torch.Tensor:
-        t = torch.from_numpy(a)
-        if self.device.type != "cuda":
-            return t
-        return t.pin_memory().to(self.device, non_blocking=True)
-
     def tokenize_padded(self, texts: list[str]) -> tuple[np.ndarray, np.ndarray]:
         """``(ids, attention)`` of one chunk padded to ``batch_size`` rows
         (padding rows attend to their first position only)."""
@@ -372,8 +384,8 @@ class BGESmallEn15(BaseModel):
             for start in range(0, len(texts), self.batch_size):
                 chunk = texts[start : start + self.batch_size]
                 ids, attn = self.tokenize_padded(chunk)
-                out[start : start + len(chunk)] = enc(self._upload(ids),
-                                                      self._upload(attn))[: len(chunk)]
+                out[start : start + len(chunk)] = enc(upload(ids, self.device),
+                                                      upload(attn, self.device))[: len(chunk)]
         return out.cpu().numpy()
 
     def status(self) -> dict:

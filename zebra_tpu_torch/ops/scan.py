@@ -2,10 +2,12 @@
 
 A Python loop over slab chunks replaces ``lax.scan``: each chunk is
 dequantised (scales, plus the residual reconstruction when given), scored
-with one full-f32 matmul against the whole query batch, reduced to its
-top-k and merged into the running result. It serves the IVF spare merge and
-the brute-force recall oracle (``ivf.brute_force``). JAX's ``approx`` flag
-(``lax.approx_max_k``) has no counterpart: selection is always exact.
+against the whole query batch (one matmul for the Gram-expansion metrics at
+``precision``, the chunked elementwise form of ``distances.pairwise`` for the
+other nine), reduced to its top-k and merged into the running result. It is
+the flat index's query, the IVF spare merge and the brute-force recall oracle
+(``ivf.brute_force``). JAX's ``approx`` flag (``lax.approx_max_k``) is
+accepted and has no counterpart: selection is always exact.
 """
 
 from __future__ import annotations
@@ -33,7 +35,10 @@ def exact_scan(
     q: torch.Tensor,
     k: int,
     metric: str = "cosine",
+    power: float = 3.0,
     chunk: int = 8192,
+    precision: str = "highest",
+    approx: bool = False,
     scales: torch.Tensor | None = None,
     norms: torch.Tensor | None = None,
     residual: torch.Tensor | None = None,
@@ -46,10 +51,16 @@ def exact_scan(
     ``scales`` dequantise an int8 slab; ``residual``/``rscales`` add the
     second-stage reconstruction ``scales*vectors + rscales*residual``;
     ``norms`` (required with a residual) are the squared norms of what the
-    slab stores. Returned slot ids are absolute.
+    slab stores; the elementwise metrics ignore them and score the
+    reconstructed rows. ``power`` is minkowski's and p_norm's exponent;
+    ``precision`` that of the Gram metrics' matmul ("highest": full f32;
+    "default": bf16 operands with an f32 accumulator on the card, f32 on the
+    CPU); ``approx`` is accepted for the JAX package's signature and changes
+    nothing. Returned slot ids are absolute.
 
     Returns ``(dists [B, k], slots [B, k], valid [B, k])``.
     """
+    del approx  # selection is always exact
     D.check_metric(metric)
     S = vectors.shape[0] if w_len is None else w_len
     B = q.shape[0]
@@ -68,9 +79,12 @@ def exact_scan(
             vecs = vecs * scales[start:end, None]
             if residual is not None:
                 vecs = vecs + residual[start:end].float() * rscales[start:end, None]
-        dots = q32 @ vecs.T
-        xn2 = norms[start:end] if norms is not None else (vecs * vecs).sum(-1)
-        d = D.mxu_from_parts(metric, dots, qn2, xn2[None, :])
+        if metric in D.MXU_METRICS:
+            dots = D.dot_pairwise(q32, vecs, precision)
+            xn2 = norms[start:end] if norms is not None else (vecs * vecs).sum(-1)
+            d = D.mxu_from_parts(metric, dots, qn2, xn2[None, :])
+        else:
+            d = D.pairwise(q32, vecs, metric=metric, power=power)
         sl = torch.arange(start, end, device=dev).expand(B, -1)
         vl = valid[start:end].expand(B, -1)
         td, ti, tv = TK.masked_topk(d, vl, sl, kb)
