@@ -121,8 +121,8 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    plain version and the exact scan (each a duplicate, an f64 tie, a row
    spilled out of its nearest cells, or its own cell dropped by stage 1 of
    probe selection as ``stage1_witness`` recomputes it exactly); the CLI
-   (``python -m zebra_tpu_torch.cli`` text insert and query in subprocesses,
-   stats and clear through its ``main`` here) and the verify skill's
+   (text insert, stats and clear through its ``main`` here, ``python -m
+   zebra_tpu_torch.cli`` text query in a process of its own) and the verify skill's
    ``hash-64`` drive;
    then the facade's top-10 of every held-out query against kernel 1's
    plain version on the same index and probes (differing ranks f64-verified
@@ -130,8 +130,9 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    guard: random-init text embeddings are crowded), and, on the path's own
    probes at B=1024 and 16384, both forms of kernel 1 against the plain
    version and in turns beside the bound, as phase 4. Cut (the run's
-   time): 65,536 documents, where it once inserted 262,144, and the CLI's
-   stats and clear in this process, not in two more processes.
+   time): 32,768 documents, where it once inserted 262,144 (65,536 before
+   phase 16 joined), and the CLI's insert, stats and clear in this
+   process, not in three more processes.
 13. a growing database at the library defaults (``DatabaseConfig(dim=768)``,
    durability "full"): the same 1M rows in 16 ``insert_vectors`` calls of
    62,500; after each call the reason the index wants, whether a retrain
@@ -149,7 +150,9 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    beside the live database (the log replayed) and one after ``close``
    (same top-10 of 1024 held-out queries), and an explicit
    ``index.rebuild()`` (every row kept, the exact top-10 unchanged, a cold
-   build's K, recall and self-retrieval). Nothing is cut.
+   build's K and recall; self-retrieval 1.0, or every miss a stage-1
+   rounding drop that ``stage1_witness`` confirms, printed by
+   ``fault_c_report``). Nothing is cut.
 14. the flat tier and the elementwise metrics on phase 4's rows: the exact
    tier (``IndexOptions.tier("exact")``: flat, an f32 slab) through the
    facade (a durable insert of 1M rows; ``search_arrays`` top-10 of 1024
@@ -164,9 +167,9 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    65,536 rows, the card's top-10 against the CPU's on the same saved
    index;
 15. the image and audio document paths: which media libraries the machine
-   has (Pillow required); 16,384 + 1,024 seeded synthetic JPEGs through
-   ``defaults.image_db``, 8,192 + 512 seeded 2 s clips (WAV, 512 FLAC twins
-   by ``tests/flac_encoder.py``) and 1,024 + 64 seeded clips that fill
+   has (Pillow required); 8,192 + 1,024 seeded synthetic JPEGs through
+   ``defaults.image_db``, 6,144 + 512 seeded 2 s clips (WAV, 512 FLAC twins
+   by ``tests/flac_encoder.py``) and 768 + 64 seeded clips that fill
    the tower's 30 s window through ``defaults.audio_db`` (ViT-base/16
    ``embeddings_mean`` on the card, IVF at the defaults), each held as
    phase 12 holds the text path (the card's tower against the CPU's,
@@ -181,7 +184,21 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    full encoder registered as a custom model (2,048 images; the forward of
    a padded batch of 32 beside its f32 bound; card vs CPU); the CLI's
    ``image insert``, ``image query --preview`` and ``audio query --play``
-   in this process.
+   in this process;
+16. (run after phase 14, on phase 4's rows) the sharded database:
+   ``DatabaseConfig(dim=768, shards=4)`` with ``device="cuda"`` (four IVF
+   states at the defaults, K=16384 and C=32 each, on this card): a durable
+   insert of the 1M rows in one call, the 16,384 held-out queries at batch
+   1024 and 16384 through ``search_arrays`` and ``db.query`` (recall@10
+   against the sharded exact scan), self-retrieval of 1024 rows, removes,
+   kernel 1's launches by form and by shard over that drive; shard 0's
+   kernel in both forms against its plain version on its own probes; the
+   device query and the merge of the partials by CUDA events; save and
+   reopen (the same top-10), a reshard on load to 2 shards (the same exact
+   top-10, recall); LSH over 4 shards on the first 131,072 rows (recall,
+   kernel 4's launches); BGE-small and ViT ``embeddings_mean``
+   tensor-parallel on a (data=2, model=4) grid of this card against the
+   single-device towers.
 
 Each facade path waits for its background retrain and log fold before it
 times anything and prints the waits (``settle``).
@@ -248,8 +265,8 @@ DUP_ROWS = slice(200_000, 201_000)
 STREAM_REPEATS = 4
 #: phase 12: synthetic documents, held-out queries, the vocabulary they are
 #: drawn from and their length in words (the documents cut from 262,144 to
-#: keep the whole run near 900 s once phases 14 and 15 joined it)
-TEXT_DOCS = 65_536
+#: 65,536 when phases 14 and 15 joined the run, to 32,768 when phase 16 did)
+TEXT_DOCS = 32_768
 TEXT_QUERIES = 4_096
 TEXT_VOCAB = 30_000
 TEXT_WORDS = (8, 60)
@@ -292,14 +309,16 @@ ELEMENT_OPS = {"chebyshev": 3, "canberra": 8, "braycurtis": 5, "manhattan": 3, "
 #: out (2 s at 16 kHz), FLAC twins of the first clips, clips that fill the
 #: tower's 30 s window inserted and held out, images of the encoder
 #: database; the card's towers against the CPU's, the spectrogram likewise
-IMAGE_DOCS = 16_384
+#: (images 16,384 -> 8,192, 2 s clips 8,192 -> 6,144, 30 s clips 1,024 -> 768
+#: when phase 16 joined the run)
+IMAGE_DOCS = 8_192
 IMAGE_QUERIES = 1_024
-AUDIO_DOCS = 8_192
+AUDIO_DOCS = 6_144
 AUDIO_QUERIES = 512
 AUDIO_RATE = 16_000
 AUDIO_SAMPLES = 32_000
 AUDIO_FLAC = 512
-WIDE_DOCS = 1_024
+WIDE_DOCS = 768
 WIDE_QUERIES = 64
 WIDE_SAMPLES = 480_000
 ENCODER_DOCS = 2_048
@@ -311,6 +330,18 @@ SPECTROGRAM_ATOL = 1e-5
 #: of each other (cosine) and probe a handful of cells, where every answer
 #: is an f64 tie of every other and no check of them can fail
 MIN_PROBED_SHARE = 0.25
+#: phase 16: shards of the sharded databases (all on the one card), rows of
+#: its LSH database (the first of phase 4's rows, cut from 1M for the run's
+#: time), rows it removes, the documents and images its tensor-parallel
+#: towers embed and their ("data", "model") grid; the towers against the
+#: single-device ones on the card
+SHARDS = 4
+SHARD_LSH_ROWS = 131_072
+SHARD_REMOVE = slice(3000, 4000)
+TP_DOCS = 256
+TP_IMAGES = 64
+TP_GRID = (2, 4)
+TP_ATOL = 1e-4
 #: documents phase 15 removes, and those it inserts again as exact copies
 #: (the 30 s clips: WIDE_*)
 MEDIA_REMOVE = slice(1000, 1256)
@@ -1876,10 +1907,11 @@ def tower_flops(enc, length: int) -> float:
 
 
 def cli_drive(tmp):
-    """The text CLI on the card: ``python -m zebra_tpu_torch.cli`` text
-    insert and query in subprocesses, then stats and clear through its
-    ``main`` in this process (cut from two more processes of ~30 s each when
-    phases 14 and 15 joined the run), checked as the JAX package's
+    """The text CLI on the card: ``text insert`` through its ``main`` in
+    this process, ``python -m zebra_tpu_torch.cli text query`` in a process
+    of its own (a fresh process opens what the CLI wrote), then stats and
+    clear through ``main`` here (cut from four processes of ~30 s each as
+    phases 14, 15 and 16 joined the run), checked as the JAX package's
     ``tests/test_cli.py`` checks its CLI."""
     import contextlib
     import io
@@ -1904,7 +1936,7 @@ def cli_drive(tmp):
         check(rc == 0, f"cli text {argv[0]} exited {rc}: {err[-2000:]}")
         return out, time.perf_counter() - t0
 
-    out, t_ins = run("insert", "apple pie recipe", "rocket science")
+    out, t_ins = run("insert", "apple pie recipe", "rocket science", process=False)
     check("Inserted 2" in out and "384-dimensional" in out, f"cli insert printed {out!r}")
     out, t_q = run("query", "apple pie recipe", "-n", "1")
     check("apple pie recipe" in out and "rocket science" not in out, f"cli query printed {out!r}")
@@ -1914,9 +1946,9 @@ def cli_drive(tmp):
           f"cli stats printed {out!r}")
     out, t_cl = run("clear", process=False)
     check(not os.path.exists(db) and not os.path.exists(db + ".d"), "cli clear left files")
-    print(f"text cli: python -m zebra_tpu_torch.cli text insert / query passed ({t_ins:.1f} / "
-          f"{t_q:.1f} s a process), stats / clear through main in this process ({t_st:.1f} / "
-          f"{t_cl:.1f} s; host clock)")
+    print(f"text cli: text insert through main in this process ({t_ins:.1f} s), python -m "
+          f"zebra_tpu_torch.cli text query in its own process ({t_q:.1f} s), stats / clear "
+          f"through main in this process ({t_st:.1f} / {t_cl:.1f} s; host clock)")
 
 
 def canonical_drive(zt, tmp):
@@ -2198,7 +2230,8 @@ def stage1_witness(torch, st, q, cell: int, metric: str):
             int((sb == sb[cell]).sum()) - 1)
 
 
-def fault_c_report(torch, V, R, IC, db, qv, rows, ids, docs, live, tag="text ", detail=50):
+def fault_c_report(torch, V, R, IC, db, qv, rows, ids, docs, live, tag="text ", detail=50,
+                   accept=None):
     """Phase 12's batch-16384 misses: every live row whose top-1 is not its
     own id, with its probes and own cell (or the spare), its own f64
     distance beside the rank-1 row's, and the top-1 of the per-query form,
@@ -2215,7 +2248,9 @@ def fault_c_report(torch, V, R, IC, db, qv, rows, ids, docs, live, tag="text ", 
     least 2P cells score above it, and the reference's bf16 scores do not
     keep it in every order among equal ones (at least 2P cells above or
     level with it). The first ``detail`` misses are printed one a line,
-    then the count of each explanation over all of them.
+    then the count of each explanation over all of them. ``accept`` names
+    the explanations that pass (default: all but "not live"; a removed
+    duplicate passes only on the document paths, which remove them).
     Returns the number of misses."""
     import numpy as np
 
@@ -2246,6 +2281,8 @@ def fault_c_report(torch, V, R, IC, db, qv, rows, ids, docs, live, tag="text ", 
               else 2.0 * dot64 - cn2)  # higher is nearer, the placement's order
     row_of = {i: r for r, i in enumerate(ids)}
     C, spare_start = st.cluster_capacity, st.spare_start
+    accept = set(accept or ("not live", "nearer in f64", "a tie with the P-th probe", "spilled",
+                            "dropped by stage 1's rounding"))
     unexplained = 0
     tally = {"not live": 0, "nearer in f64": 0, "in the spare": 0, "a tie with the P-th probe": 0,
              "spilled": 0, "dropped by stage 1's rounding": 0}
@@ -2255,6 +2292,7 @@ def fault_c_report(torch, V, R, IC, db, qv, rows, ids, docs, live, tag="text ", 
         same_doc = [r for r in range(len(docs)) if r != q and docs[r] == docs[q]][:4]
         if own is None:
             tally["not live"] += 1
+            unexplained += "not live" not in accept
             if b < detail:
                 print(f"  row {q}: not live (a duplicate of rows {same_doc} removed by "
                       f"deduplicate)")
@@ -2273,7 +2311,7 @@ def fault_c_report(torch, V, R, IC, db, qv, rows, ids, docs, live, tag="text ", 
             if b < detail:
                 print(line + "; own slot in the spare")
             tally["in the spare"] += 1
-            unexplained += not nearer
+            unexplained += not (nearer and "nearer in f64" in accept)
             continue
         cell = own // C
         order = torch.argsort(cell64[b], descending=True)
@@ -2297,12 +2335,14 @@ def fault_c_report(torch, V, R, IC, db, qv, rows, ids, docs, live, tag="text ", 
                   f"dropped by the rounding: {rounding}; the reference's bf16 scores put "
                   f"{ref_above} above it and {ref_tied} level with it), placement order {place} "
                   f"(own at {spilled}; > 0 = spilled past fuller cells)")
-        unexplained += not (nearer or tie or spilled > 0 or rounding)
+        found = {"nearer in f64": nearer, "a tie with the P-th probe": tie,
+                 "spilled": spilled > 0, "dropped by stage 1's rounding": rounding}
+        unexplained += not any(v for k, v in found.items() if k in accept)
     print(f"{tag}misses: the first {min(detail, len(misses))} printed; over all {len(misses)}, "
           f"each may hold several explanations: "
           + ", ".join(f"{k} {v}" for k, v in tally.items()) + f"; unexplained {unexplained}")
-    check(not unexplained, f"{unexplained} rows lost their own id to a farther row, their own "
-          f"cell neither tied with the probes, spilled to, nor dropped by stage 1's rounding")
+    check(not unexplained, f"{unexplained} rows lost their own id and no accepted explanation "
+          f"({sorted(accept)}) holds")
     return len(misses)
 
 
@@ -2364,7 +2404,7 @@ def growth_quality(torch, V, index, base, ids, queries, s, e):
     return {"recall": recall, "fresh": own(s), "self": own(0)}
 
 
-def growth_path(torch, zt, V, R, tmp, base, queries):
+def growth_path(torch, zt, V, R, IC, tmp, base, queries):
     """Phase 13: a database at the library defaults that users keep filling.
     1/GROWTH_CALLS of ``base`` first, then the rest in GROWTH_CALLS - 1
     equal calls, while a reader thread queries a batch of 1024 every 0.2 s
@@ -2635,14 +2675,269 @@ def growth_path(torch, zt, V, R, tmp, base, queries):
     print(f"growth after the explicit rebuild: {json.dumps(after_rebuild)}")
     check(len(db) == n and all(i in db.index for i in ids[::997]), "the rebuild lost rows")
     check(same >= MIN_SLOT_AGREEMENT, "the rebuild changed the exact top-10")
-    check(db.index.state.num_clusters == cold_k and after_rebuild["recall"] >= MIN_RECALL
-          and after_rebuild["self"] == 1.0,
+    check(db.index.state.num_clusters == cold_k and after_rebuild["recall"] >= MIN_RECALL,
           "the rebuilt index does not answer as a cold build does")
+    if after_rebuild["self"] < 1.0:
+        # a miss passes only as a stage-1 rounding drop that stage1_witness
+        # confirms (fault C, a behaviour of the reference), and is printed;
+        # a lost row or any other miss fails (the phase's launches were
+        # read above)
+        pick = np.linspace(0, n - 1, 1024).astype(np.int64)
+        misses = fault_c_report(
+            torch, V, R, IC, db, base[pick], db.index.search(base[pick], 1),
+            [ids[i] for i in pick], [base[i].tobytes() for i in pick], range(1024),
+            tag="growth rebuilt ", accept=("dropped by stage 1's rounding",))
+        print(f"growth after the explicit rebuild: {misses} of 1024 rows miss their own id, "
+              f"each a stage-1 rounding drop (fault C)")
     rec.update(rebuild_s=rebuild_s, rebuild_same=same, after_rebuild=after_rebuild)
     db.close()
     del db
     torch.cuda.empty_cache()
     return launches, rec
+
+
+def sharded_path(torch, zt, V, R, IC, LR, tmp, base, queries):
+    """Phase 16: the sharded database on the card. ``DatabaseConfig(dim=768,
+    shards=4)`` with ``device="cuda"`` (every shard on this card): a durable
+    insert of the 1M rows in one call, the 16,384 held-out queries at batch
+    1024 and 16384 through ``search_arrays`` and ``db.query`` (recall@10
+    against the sharded exact scan), self-retrieval of 1024 rows, removes,
+    kernel 1's launches by form and by shard over that drive; then one
+    shard's kernel against its plain version on the same probes (both
+    forms), the device query and its merge by CUDA events, save and reopen
+    at 4 shards (the same top-10), a reshard on load to 2 (the same exact
+    top-10 and recall); LSH over 4 shards on the first SHARD_LSH_ROWS rows
+    (recall, kernel 4's launches); BGE-small and ViT ``embeddings_mean``
+    tensor-parallel over a (data=2, model=4) grid of this card against the
+    single-device towers. Returns kernel 1's launch count by form over the
+    drive, kernel 4's launches (all, slab-major) and the phase's record."""
+    import numpy as np
+    from zebra_tpu_torch import profiling as P
+    from zebra_tpu_torch.index import buckets as TB
+    from zebra_tpu_torch.models import image as MI
+    from zebra_tpu_torch.models import text as MT
+    from zebra_tpu_torch.parallel import make_tower_mesh
+    from zebra_tpu_torch.parallel.sharded import ShardedIndex, merge_partials
+
+    dev = torch.device("cuda", 0)
+    n = base.shape[0]
+    path = os.path.join(tmp, "sharded.zebra")
+    rec = {}
+    by_shard = [{} for _ in range(SHARDS)]
+    query = V.query
+    db = None
+
+    def counted(st, *a, **kw):
+        """``ivf.query`` with kernel 1's launches credited to the shard whose
+        state it was given."""
+        before = dict(R.LAUNCHES_BY_FORM)
+        out = query(st, *a, **kw)
+        shard = next((i for i, x in enumerate(db.index.state or ()) if x is st), None)
+        if shard is not None:
+            for key, c in R.LAUNCHES_BY_FORM.items():
+                if c > before.get(key, 0):
+                    by_shard[shard][key] = by_shard[shard].get(key, 0) + c - before.get(key, 0)
+        return out
+
+    # the main drive: the counts are zero here and read right after it
+    R.LAUNCHES = 0
+    R.LAUNCHES_BY_FORM.clear()
+    V.EAGER_LARGE_K = 0
+    P.GLOBAL_STATS.ops.clear()
+    V.query = counted
+    try:
+        db = zt.Database.create(path, zt.DatabaseConfig(dim=DIM, shards=SHARDS), device="cuda")
+        idx = db.index
+        check(isinstance(idx, ShardedIndex) and idx.shards == SHARDS
+              and idx.shard_devices == [dev] * SHARDS and idx.options.rerank == "cuda"
+              and idx.options.refine == "scan", "shards=4 on the card must hold 4 IVF states "
+              "at the defaults on cuda:0, re-ranked by kernel 1")
+        t0 = time.perf_counter()
+        ids = db.insert_vectors(base)
+        torch.cuda.synchronize()
+        insert_s = time.perf_counter() - t0
+        wait_s = settle(db, "sharded ", "after the insert")
+        st = idx.stats()
+        print(f"sharded insert: {n} x {DIM} durable rows over {SHARDS} shards in one call, "
+              f"{insert_s:.2f} s ({n / insert_s:.0f} rows/s); stages {json.dumps(db.stats.summary())}; "
+              f"{json.dumps(P.GLOBAL_STATS.summary())}; index {json.dumps(st)}; log codec "
+              f"{idx._wal_codec}")
+        check(len(db) == n and st["clusters_per_shard"] == 16384 and st["cluster_capacity"] == 32
+              and idx.state[0].spare_capacity >= 16384,
+              "each shard must hold an unsharded 1M-row index's 16,384 cells, 32 rows deep, "
+              "and the spare of its 250,000 rows")
+        q16 = queries
+        _, approx, _ = idx.search_arrays(q16, 10)  # the first call at this shape warms
+        _, approx1k, _ = zip(*(idx.search_arrays(q16[s:s + 1024], 10)
+                                for s in range(0, N_QUERIES, 1024)))
+        rows16 = db.query(q16, 10)
+        arrays_s = time_ms_host(lambda: idx.search_arrays(q16, 10), 3) / 1e3
+        arrays1k_s = time_ms_host(lambda: [idx.search_arrays(q16[s:s + 1024], 10)
+                                           for s in range(0, N_QUERIES, 1024)], 2) / 1e3
+        query_s = time_ms_host(lambda: db.query(q16, 10), 2) / 1e3
+        query1k_s = time_ms_host(lambda: [db.query(q16[s:s + 1024], 10)
+                                          for s in range(0, N_QUERIES, 1024)], 2) / 1e3
+        pick = np.linspace(0, n - 1, 1024).astype(np.int64)
+        own = np.array([idx._id_to_slot.get(ids[i]) for i in pick])
+        _, top1, _ = idx.search_arrays(base[pick], 1)
+        self_ret = float(np.mean(top1[:, 0] == own))
+        named = [[i for i, _ in r] for r in rows16]
+        same_rows = named == [idx._slot_ids.take_list(r) for r in approx]
+        gone = ids[SHARD_REMOVE]
+        db.remove(gone)
+        gone_set = set(gone)
+        returned = sum(i in gone_set for r in db.query(base[SHARD_REMOVE], 10) for i, _ in r)
+    finally:
+        V.query = query
+    forms, launches = dict(R.LAUNCHES_BY_FORM), R.LAUNCHES
+    print(f"sharded kernel 1 over the drive: {launches} launches {forms}; by shard "
+          f"{by_shard}; eager re-ranks {V.EAGER_LARGE_K}")
+    check(launches > 0 and V.EAGER_LARGE_K == 0 and all(by_shard)
+          and forms.get("int8+residual/cluster", 0) > 0 and forms.get("int8+residual/query", 0) > 0,
+          "every shard must run kernel 1, both forms over the drive")
+    exact = np.concatenate([idx.search_arrays(q16[s:s + 1024], 10, exact=True)[1]
+                            for s in range(0, N_QUERIES, 1024)])
+    recall = float(np.mean([len(set(a) & set(b)) / 10 for a, b in zip(approx, exact)]))
+    recall1k = float(np.mean([len(set(a) & set(b)) / 10
+                              for a, b in zip(np.concatenate(approx1k), exact)]))
+    print(f"sharded queries: recall@10 of {N_QUERIES} held-out queries against the sharded exact "
+          f"scan {recall:.4f} at batch 16384, {recall1k:.4f} at 1024; search_arrays "
+          f"{N_QUERIES / arrays_s:.0f} QPS at 16384, {N_QUERIES / arrays1k_s:.0f} at 1024; "
+          f"db.query {N_QUERIES / query_s:.0f} QPS at 16384, {N_QUERIES / query1k_s:.0f} at 1024 "
+          f"(the same ids as search_arrays: {same_rows}); self-retrieval of 1024 rows "
+          f"{self_ret:.4f}; removed ids returned {returned}")
+    check(recall >= MIN_RECALL and recall1k >= MIN_RECALL, "sharded recall@10 below the floor")
+    check(same_rows, "db.query and search_arrays answer differently")
+    check(self_ret == 1.0, "an inserted row does not find itself")
+    check(returned == 0, "removed ids came back")
+    rec.update(insert_s=insert_s, insert_rows_s=n / insert_s, fold_wait_s=wait_s, recall=recall,
+               recall_1024=recall1k, arrays_qps=N_QUERIES / arrays_s,
+               arrays_qps_1024=N_QUERIES / arrays1k_s, query_qps=N_QUERIES / query_s,
+               query_qps_1024=N_QUERIES / query1k_s, self=self_ret, launches=forms,
+               by_shard=by_shard)
+
+    # one shard's kernel against its plain version on that shard's probes;
+    # the device query, its shards and its merge by CUDA events
+    st0, metric, Pr = idx.state[0], idx.metric, idx.options.resolved_probes()
+    for B in (1024, N_QUERIES):
+        qt = torch.from_numpy(q16[:B]).to(dev)
+        probes = V.select_probes(st0, qt, Pr, metric, idx.options.probe_sel)
+        want = R.ivf_rerank_reference(st0, qt, probes, 10, metric, scan_residual=True)
+        d64 = slab_d64(torch, st0, qt, metric, residual=True)
+        for form in ("query", "cluster"):
+            got = in_form(IC, form, lambda: R.ivf_rerank(st0, qt, probes, 10, metric, True))
+            agree, err, swaps, gap = hold(torch, got, want, d64, min_agree=0.0)
+            print(f"sharded parity: shard 0's ivf_rerank int8+residual {form} form, B={B} "
+                  f"P={Pr} k=10: slot agreement {agree:.6f}, max abs err {err:.3g}; {swaps} "
+                  f"differing ranks, all ties (largest f64 gap {gap:.3g} <= {TIE_TOL})")
+            rec[f"parity_max_abs_err_{form}"] = max(err, rec.get(f"parity_max_abs_err_{form}", 0))
+        whole = time_ms(torch, lambda: idx._query_device(qt, 10, False), 10)
+        shard_ms = time_ms(torch, lambda: idx._partials(qt, 10, False), 10)
+        parts = idx._partials(qt, 10, False)
+        merge = time_ms(torch, lambda: merge_partials(parts, 10, dev), 20)
+        print(f"sharded device query, B={B}: {whole:.3f} ms, of which the {SHARDS} shards' "
+              f"queries {shard_ms:.3f} ms and the merge of their [{SHARDS}, {B}, 10] partials "
+              f"{merge:.3f} ms (share {merge / whole:.4f})")
+        rec[f"device_ms_{B}"], rec[f"merge_ms_{B}"] = whole, merge
+        del probes, want, parts
+
+    # save and reopen at 4 shards; reopen resharded to 2
+    probe = q16[:1024]
+    want = [[i for i, _ in r] for r in db.query(probe, 10)]
+    exact4 = db.index.search(probe, 10, exact=True)
+    t0 = time.perf_counter()
+    db.save()
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    again = zt.Database.open(path, device="cuda")
+    open_s = time.perf_counter() - t0
+    got = [[i for i, _ in r] for r in again.query(probe, 10)]
+    print(f"sharded save {save_s:.2f} s, open {open_s:.2f} s: {again.index.shards} shards, "
+          f"{len(again)} live; the same top-10 of 1024 held-out queries: {got == want}")
+    check(got == want and again.index.shards == SHARDS, "the reopened sharded database differs")
+    del again
+    t0 = time.perf_counter()
+    two = ShardedIndex.load(os.path.join(f"{path}.d", "index"), shards=2, device="cuda")
+    reshard_s = time.perf_counter() - t0
+    exact2 = two.search(probe, 10, exact=True)
+    same_ids = float(np.mean([[i for i, _ in a] == [i for i, _ in b]
+                              for a, b in zip(exact2, exact4)]))
+    dist_gap = max(abs(da - db_) / (1.0 + abs(db_)) for a, b in zip(exact2, exact4)
+                   for (_, da), (_, db_) in zip(a, b))
+    _, a2, _ = two.search_arrays(probe, 10)
+    _, e2, _ = two.search_arrays(probe, 10, exact=True)
+    recall2 = float(np.mean([len(set(a) & set(b)) / 10 for a, b in zip(a2, e2)]))
+    st2 = two.stats()
+    print(f"sharded reshard on load 4 -> 2: {reshard_s:.2f} s, {len(two)} live, "
+          f"{st2['clusters_per_shard']} clusters of {st2['cluster_capacity']} a shard; the exact "
+          f"top-10 of 1024 held-out queries the same ids for {same_ids:.4f} (largest relative "
+          f"distance gap rank by rank {dist_gap:.3g}); recall@10 {recall2:.4f}")
+    check(len(two) == len(db) and two.shards == 2, "the reshard lost rows")
+    check(same_ids == 1.0 or dist_gap <= TIE_TOL, "the resharded exact top-10 differs beyond ties")
+    check(recall2 >= MIN_RECALL, "the resharded index's recall is below the floor")
+    rec.update(save_s=save_s, open_s=open_s, reshard_s=reshard_s, reshard_recall=recall2,
+               reshard_same_exact=same_ids)
+    del two, db, idx, st0
+    torch.cuda.empty_cache()
+
+    # LSH over 4 shards; kernel 4's launches over its queries
+    lpath = os.path.join(tmp, "sharded_lsh.zebra")
+    LR.LAUNCHES = 0
+    LR.LAUNCHES_SLAB = 0
+    TB.EAGER_LARGE_K = 0
+    lsh = zt.Database.create(lpath, zt.DatabaseConfig(
+        dim=DIM, shards=SHARDS, index=zt.IndexOptions(index_type="lsh")), device="cuda")
+    rows = base[:SHARD_LSH_ROWS]
+    t0 = time.perf_counter()
+    lids = lsh.insert_vectors(rows)
+    torch.cuda.synchronize()
+    lsh_insert_s = time.perf_counter() - t0
+    settle(lsh, "sharded lsh ", "after the insert")
+    t0 = time.perf_counter()
+    _, la, _ = lsh.index.search_arrays(probe, 10)
+    lsh_query_s = time.perf_counter() - t0
+    _, lt1, _ = lsh.index.search_arrays(rows[pick[pick < SHARD_LSH_ROWS]], 1)
+    lsh_launches, lsh_slab = LR.LAUNCHES, LR.LAUNCHES_SLAB
+    _, le, _ = lsh.index.search_arrays(probe, 10, exact=True)
+    lrecall = float(np.mean([len(set(a) & set(b)) / 10 for a, b in zip(la, le)]))
+    lown = np.array([lsh.index._id_to_slot.get(lids[i]) for i in pick[pick < SHARD_LSH_ROWS]])
+    lself = float(np.mean(lt1[:, 0] == lown))
+    print(f"sharded lsh: {SHARD_LSH_ROWS} rows over {SHARDS} shards in {lsh_insert_s:.2f} s; "
+          f"{json.dumps(lsh.index.stats())}; recall@10 of 1024 held-out queries {lrecall:.4f} "
+          f"({1024 / lsh_query_s:.0f} QPS at 1024); self-retrieval {lself:.4f} of {len(lown)}; "
+          f"kernel 4: {lsh_launches} launches ({lsh_slab} slab-major), eager re-ranks "
+          f"{TB.EAGER_LARGE_K}")
+    check(lrecall >= MIN_LSH_RECALL and lsh_launches > 0 and TB.EAGER_LARGE_K == 0,
+          "sharded LSH must run kernel 4 on every shard and reach its recall floor")
+    check(lself >= MIN_LSH_SELF, "sharded LSH rows do not find themselves")
+    rec.update(lsh_recall=lrecall, lsh_self=lself, lsh_insert_s=lsh_insert_s,
+               lsh_launches=lsh_launches, lsh_launches_slab=lsh_slab)
+    del lsh
+    torch.cuda.empty_cache()
+
+    # the tensor-parallel towers on a (data, model) grid of this card
+    mesh = make_tower_mesh(TP_GRID[1], TP_GRID[0], [dev] * (TP_GRID[0] * TP_GRID[1]))
+    docs = make_documents(TP_DOCS, SEED + 16)
+    single_t, tp_t = MT.BGESmallEn15(), MT.BGESmallEn15(mesh=mesh)
+    text_err = float(np.abs(tp_t.embed_documents(docs) - single_t.embed_documents(docs)).max())
+    ids_t, attn_t = (torch.from_numpy(a).to(dev) for a in single_t.tokenize_padded(
+        [d.decode() for d in docs[:single_t.batch_size]]))
+    with torch.inference_mode():
+        one_ms = time_ms(torch, lambda: single_t.encoder()(ids_t, attn_t), 5)
+        tp_ms = time_ms(torch, lambda: tp_t.encoder()(ids_t, attn_t), 5)
+    images = [make_image(i) for i in range(TP_IMAGES)]
+    single_i, tp_i = MI.VitImageModel(), MI.VitImageModel(mesh=mesh)
+    image_err = float(np.abs(tp_i.embed_documents(images) - single_i.embed_documents(images)).max())
+    print(f"sharded towers on a (data={TP_GRID[0]}, model={TP_GRID[1]}) grid of one card: "
+          f"BGE-small on {TP_DOCS} documents max abs err {text_err:.3g} against the "
+          f"single-device tower (a batch of {single_t.batch_size}: {tp_ms:.3f} ms against "
+          f"{one_ms:.3f} ms); ViT embeddings_mean on {TP_IMAGES} images {image_err:.3g} "
+          f"(<= {TP_ATOL})")
+    check(text_err <= TP_ATOL and image_err <= TP_ATOL,
+          "a tensor-parallel tower differs from its single-device tower")
+    rec.update(tp_text_err=text_err, tp_image_err=image_err, tp_text_ms=tp_ms,
+               text_ms=one_ms)
+    return forms, {"launches": lsh_launches, "launches_slab": lsh_slab}, rec
 
 
 def dist64(torch, metric, a, b, power=3.0):
@@ -3613,7 +3908,8 @@ def main() -> int:
     # phase 13: the growing database at the library defaults
     tmp = tempfile.mkdtemp(prefix="zebra_smoke_growth_")
     try:
-        growth_forms, pipe_recs["growth"] = growth_path(torch, zt, V, R, tmp, base, queries)
+        growth_forms, pipe_recs["growth"] = growth_path(torch, zt, V, R, IC, tmp, base,
+                                                            queries)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -3622,6 +3918,15 @@ def main() -> int:
     tmp = tempfile.mkdtemp(prefix="zebra_smoke_flat_")
     try:
         pipe_recs["flat"] = flat_path(torch, zt, V, TB, R, tmp, base, queries)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    lap(16)
+    # phase 16: the sharded database (4 shards on the card), the towers' mesh
+    tmp = tempfile.mkdtemp(prefix="zebra_smoke_sharded_")
+    try:
+        sharded_forms, sharded_lsh, pipe_recs["sharded"] = sharded_path(
+            torch, zt, V, R, IC, LR, tmp, base, queries)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     del data, base, queries
@@ -3642,10 +3947,13 @@ def main() -> int:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     growth_launches = sum(growth_forms.values())
+    sharded_launches = sum(sharded_forms.values())
     print(f"launches: ivf_rerank {launches} {scan_forms} (defaults), {bal_launches} "
-          f"{bal_forms} (balanced), {f32_launches} {f32_forms} (f32) and {growth_launches} "
-          f"{growth_forms} (growing database), lsh_rerank "
-          f"{lsh_run['launches']} (slab-major form {lsh_run['launches_slab']}), "
+          f"{bal_forms} (balanced), {f32_launches} {f32_forms} (f32), {growth_launches} "
+          f"{growth_forms} (growing database) and {sharded_launches} {sharded_forms} "
+          f"(4 shards), lsh_rerank "
+          f"{lsh_run['launches']} (slab-major form {lsh_run['launches_slab']}) and "
+          f"{sharded_lsh['launches']} ({sharded_lsh['launches_slab']}) (4 shards), "
           f"ivf_rerank_wave {wave_launches} {wave_by_form}, ivf_rerank_aug {aug_launches} "
           f"{aug_by_form}, ivf_rerank {text_entry['launches']} {pipe_recs['text']['launches']} "
           f"(text documents), {media_entries[0]['launches']} "
@@ -3657,10 +3965,12 @@ def main() -> int:
           f"{time.perf_counter() - t_start:.0f} s after the card check")
 
     print("pipeline: " + json.dumps(pipe_recs | {"lsh": lsh_run["pipeline"]}))
+    lsh_all = {**lsh_run, "launches": lsh_run["launches"] + sharded_lsh["launches"],
+               "launches_slab": lsh_run["launches_slab"] + sharded_lsh["launches_slab"]}
     record = kernels_record(
-        forms, (scan_forms, bal_forms, f32_forms, growth_forms),
-        launches + bal_launches + f32_launches + growth_launches,
-        lsh_run, lsh_rec, wave_forms, path_recs, wave_by_form, wave_launches, aug_launches,
+        forms, (scan_forms, bal_forms, f32_forms, growth_forms, sharded_forms),
+        launches + bal_launches + f32_launches + growth_launches + sharded_launches,
+        lsh_all, lsh_rec, wave_forms, path_recs, wave_by_form, wave_launches, aug_launches,
         aug_by_form, aug_forms)
     record["kernels"].append(text_entry)
     record["kernels"].extend(media_entries)

@@ -310,9 +310,10 @@ def test_construction_needs_a_device_without_cuda(tmp_path, monkeypatch):
 
 def test_unported_surfaces_raise(tmp_path):
     """The document surfaces work on the port (``tests/test_torch_documents.py``
-    holds them to the JAX package), and so do the image and audio towers and
-    the flat index now (``tests/test_torch_media.py``, ``tests/test_torch_flat.py``);
-    what is left unported raises naming its ROADMAP entry: sharding."""
+    holds them to the JAX package), and so do the image and audio towers,
+    the flat index and sharding now (``tests/test_torch_media.py``,
+    ``tests/test_torch_flat.py``, ``tests/test_torch_sharded.py``); only
+    orbax snapshots stay unported."""
     import io
     import wave
 
@@ -344,6 +345,8 @@ def test_unported_surfaces_raise(tmp_path):
                              device="cpu")
     fids = flat.insert_vectors(np.eye(8, dtype=np.float32))
     assert flat.query(np.eye(8, dtype=np.float32)[5], 1)[0][0][0] == fids[5]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, sharding"):
-        T.Database.create(str(tmp_path / "s.zebra"), T.DatabaseConfig(dim=8, shards=2),
-                          device="cpu")
+    sharded = T.Database.create(str(tmp_path / "s.zebra"), T.DatabaseConfig(dim=8, shards=2),
+                                device="cpu")
+    sids = sharded.insert_vectors(np.eye(8, dtype=np.float32))
+    assert sharded.index.shards == 2 and sharded.index.stats()["vectors"] == 8
+    assert sharded.query(np.eye(8, dtype=np.float32)[3], 1)[0][0][0] == sids[3]

@@ -77,8 +77,14 @@ def test_registry_caches_by_name_and_device():
 def test_text_tower_needs_a_device_without_cuda():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         TT.BGESmallEn15()
-    with pytest.raises(NotImplementedError, match="sharding"):
-        TT.BGESmallEn15(device="cpu", mesh=object())
+    from zebra_tpu_torch.parallel.towers import make_tower_mesh
+
+    # a mesh names the devices: tensor-parallel over two CPU ranks
+    tp = TT.BGESmallEn15(batch_size=2, mesh=make_tower_mesh(2, 1, [torch.device("cpu")] * 2))
+    assert tp.device == torch.device("cpu")
+    single = TT.BGESmallEn15(batch_size=2, device="cpu")
+    np.testing.assert_allclose(tp.embed_documents([b"a zebra"]),
+                               single.embed_documents([b"a zebra"]), atol=2e-5, rtol=2e-5)
 
 
 def test_wordpiece_ids_are_the_jax_packages(tmp_path):

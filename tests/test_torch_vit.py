@@ -189,8 +189,11 @@ def test_status_strings_are_the_jax_packages(fresh_towers, monkeypatch, tmp_path
     partial = TV.weight_status("encoder_cls", device="cpu")  # the checkpoint has no encoder
     assert partial == JV.weight_status("encoder_cls") == [
         "ViT checkpoint only partially mapped (see log)"]
-    with pytest.raises(NotImplementedError, match="sharding"):
-        TV.embed_pixels(pixels, device="cpu", mesh=object())
+    from zebra_tpu_torch.parallel.towers import make_tower_mesh
+
+    tp_mesh = make_tower_mesh(2, 1, [torch.device("cpu")] * 2)
+    np.testing.assert_allclose(TV.embed_pixels(pixels, mesh=tp_mesh),
+                               TV.embed_pixels(pixels, device="cpu"), atol=2e-5, rtol=2e-5)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
         TV.embed_pixels(pixels)

@@ -35,8 +35,13 @@ device's default stream, as every caller's), so the card runs a capture
 before any in-place write queued after it. ``wait_for_fold`` and
 ``wait_for_retrain`` join them; ``close`` and process exit drain them.
 
-Not ported yet: sharding (``shards > 1`` raises ``NotImplementedError``
-naming ROADMAP.md queue 1).
+``DatabaseConfig(shards=S)`` with S > 1 holds a
+``parallel.sharded.ShardedIndex`` (``zebra_tpu/db.py:34-63``): with
+``device=None`` one CUDA card per shard (fewer cards raise, as the JAX
+package does on fewer chips), with an explicit ``device`` every shard on
+that one device; the same log records (the sharded index ships rows on the
+array wire: bf16 records for the bf16 slab and plain int8, f32 otherwise)
+and the same workers.
 """
 
 from __future__ import annotations
@@ -60,7 +65,8 @@ from zebra_tpu_torch.models.base import get_model
 from zebra_tpu_torch.profiling import Stats, timed
 from zebra_tpu_torch.storage.blobs import make_document_store
 from zebra_tpu_torch.storage.deltalog import DeltaLog
-from zebra_tpu_torch.storage.snapshots import CaptureAborted, ChunkedSource, _member_meta, _to_np
+from zebra_tpu_torch.storage.snapshots import (DEVICE_MEMBERS, CaptureAborted, ChunkedSource,
+                                               _member_meta, _to_np)
 from zebra_tpu_torch.utils import (RWLock, device_readback_mbs, fsync_write, uuid7_batch,
                                    uuid7_bytes, uuid_hex)
 
@@ -95,8 +101,24 @@ def _drain_background_workers() -> None:
             logger.exception("draining a database's background workers at exit")
 
 
-def _not_ported(what: str, entry: str):
-    raise NotImplementedError(f"{what} is not ported to the torch package yet ({entry})")
+def _make_index(config: DatabaseConfig, device=None):
+    """The index of ``config``: sharded over ``config.shards`` when above 1."""
+    if config.shards > 1:
+        from zebra_tpu_torch.parallel.sharded import ShardedIndex
+
+        return ShardedIndex(dim=config.dim, metric=config.metric, options=config.index,
+                            metric_power=config.metric_power, shards=config.shards,
+                            device=device)
+    return make_index(config.dim, config.metric, config.index, config.metric_power,
+                      device=device)
+
+
+def _load_index(config: DatabaseConfig, directory: str, device=None):
+    if config.shards > 1:
+        from zebra_tpu_torch.parallel.sharded import ShardedIndex
+
+        return ShardedIndex.load(directory, device=device)
+    return load_index(directory, device=device)
 
 
 class Database:
@@ -105,13 +127,10 @@ class Database:
     def __init__(self, config: DatabaseConfig, path: str, index=None,
                  uuid: bytes | None = None, device=None, codec: str | None = None,
                  blob_backend: str | None = None):
-        if config.shards > 1:
-            _not_ported("sharding (shards > 1)", "ROADMAP.md queue 1, sharding")
         self.config = config
         self.path = path
         self.uuid = uuid or uuid7_bytes()
-        self.index = index if index is not None else make_index(
-            config.dim, config.metric, config.index, config.metric_power, device=device)
+        self.index = index if index is not None else _make_index(config, device)
         #: where the embedding model runs (None: the card)
         self.device = device
         self._blob_backend = blob_backend
@@ -184,7 +203,7 @@ class Database:
         index_dir = os.path.join(f"{path}.d", "index")
         index = None
         if os.path.exists(os.path.join(index_dir, "index.json")):
-            index = load_index(index_dir, device=device)
+            index = _load_index(config, index_dir, device=device)
         backend = manifest.get("blob_backend")
         if backend is None:  # a manifest without it: inferred from the codec
             backend = "packed" if manifest.get("codec") == "packed-zlib" else "files"
@@ -562,7 +581,7 @@ class Database:
         (``_save_gen``) or a reallocated member aborts the fetch."""
         arrays = dict(cap["arrays"])
         for name, v in arrays.items():
-            if isinstance(v, torch.Tensor):
+            if isinstance(v, DEVICE_MEMBERS):
                 shape, dtype = _member_meta(v)
                 arrays[name] = ChunkedSource(shape, dtype, functools.partial(
                     self._fold_fetch_chunk, name, tuple(v.shape), gen, sgen))

@@ -41,6 +41,7 @@ import torch
 from zebra_tpu_torch.config import IndexOptions
 from zebra_tpu_torch.ops import distances as D
 from zebra_tpu_torch.profiling import timed
+from zebra_tpu_torch.storage.snapshots import DEVICE_MEMBERS, member_nbytes
 from zebra_tpu_torch.utils import fsync_write, next_pow2, uuid7_batch
 
 #: insert span width (vectors per device insert)
@@ -137,6 +138,12 @@ def _unpack_results(packed: np.ndarray, nq: int, k: int):
     d = np.ascontiguousarray(packed[:nq, :k]).view(np.float32)
     s = packed[:nq, k : 2 * k].astype(np.int64)
     return d, s, s >= 0
+
+
+def read_meta(directory: str) -> dict:
+    """A snapshot's ``index.json``."""
+    with open(os.path.join(directory, "index.json"), "rb") as f:
+        return json.loads(f.read())
 
 
 class SlotIdArena:
@@ -241,7 +248,8 @@ class BaseVectorIndex:
     device tensor, or as a host array where the host knows them),
     ``_resolve_failed``, ``_delete_slots_device``, ``_query_device``,
     ``_snapshot_arrays`` and ``_restore_arrays``; the array wire
-    (``_stage_span``) and ``_take_rows`` may be replaced; the rebuild policy hooks
+    (``_stage_span``), ``_take_rows``, ``_row_hashes``, ``_valid_by_slot`` and
+    ``_live_order_ids`` may be replaced (the sharded index does); the rebuild policy hooks
     (``_rebuild_reason``, ``_pre_rebuild``, ``_reset_alloc_mirrors``) and the
     snapshot meta hooks (``_meta_extra``, ``_apply_meta_extra``,
     ``_after_restore``) are optional.
@@ -442,9 +450,16 @@ class BaseVectorIndex:
 
     def _ready(self, staged: Staged):
         """The staged tensors, with the current stream ordered after their
-        copy (the host does not wait)."""
+        copy (the host does not wait) and recorded on it, so the allocator
+        keeps their memory until the work queued here has read it also when
+        the consuming thread's stream is not the one current at
+        :meth:`_ship`."""
         if staged.event is not None:
-            torch.cuda.current_stream(self.device).wait_event(staged.event)
+            stream = torch.cuda.current_stream(self.device)
+            stream.wait_event(staged.event)
+            parts = staged.parts if isinstance(staged.parts, tuple) else (staged.parts,)
+            for t in parts:
+                t.record_stream(stream)
         return staged.parts
 
     def _download(self, t):
@@ -462,6 +477,9 @@ class BaseVectorIndex:
             host.copy_(t, non_blocking=True)
             event = torch.cuda.Event()
             event.record(d2h)
+        # a handle dropped before its fetch frees ``t``: the allocator must
+        # not hand the block to other work while the copy still reads it
+        t.record_stream(d2h)
         return (host, event, t)
 
     @staticmethod
@@ -587,11 +605,8 @@ class BaseVectorIndex:
         colliding groups gather their stored values for the host to confirm."""
         if self.state is None or not self._id_to_slot:
             return []
-        from zebra_tpu_torch.ops.rowhash import row_hashes
-
         slots = self._slot_ids.live_slots()
-        hashes = row_hashes(self.state.vectors).cpu().numpy()
-        keys = hashes[slots].astype(np.int64)
+        keys = self._row_hashes(slots).astype(np.int64)
         keys = (keys[:, 0] << 32) ^ (keys[:, 1] & 0xFFFFFFFF)
         order = np.argsort(keys, kind="stable")  # slots ascending within ties
         ks = keys[order]
@@ -614,6 +629,13 @@ class BaseVectorIndex:
         inv_sorted = inv[order2]
         first = np.concatenate([[True], inv_sorted[1:] != inv_sorted[:-1]])
         return self._slot_ids.take_list(sus[order2[~first]])
+
+    def _row_hashes(self, slots: np.ndarray) -> np.ndarray:
+        """``[m, 2]`` int32 hashes of the stored rows at ``slots`` (computed
+        on the device for the whole slab, read back as 8 bytes a row)."""
+        from zebra_tpu_torch.ops.rowhash import row_hashes
+
+        return row_hashes(self.state.vectors).cpu().numpy()[slots]
 
     def _take_rows(self, slots: np.ndarray) -> torch.Tensor:
         """Device gather of slab rows as stored values (int8 backends
@@ -876,8 +898,8 @@ class BaseVectorIndex:
         if self.state is not None:
             arrays = {"slot_ids": self._slot_ids.to_array().copy(), **self._snapshot_arrays()}
             if clone:
-                dev = {k: v for k, v in arrays.items() if isinstance(v, torch.Tensor)}
-                if sum(v.numel() * v.element_size() for v in dev.values()) <= _CLONE_HBM_BUDGET:
+                dev = {k: v for k, v in arrays.items() if isinstance(v, DEVICE_MEMBERS)}
+                if sum(member_nbytes(v) for v in dev.values()) <= _CLONE_HBM_BUDGET:
                     arrays.update({k: v.clone() for k, v in dev.items()})
                 else:
                     cloned = False
@@ -896,31 +918,42 @@ class BaseVectorIndex:
 
     @classmethod
     def load(cls, directory: str, device=None):
+        meta = read_meta(directory)
+        idx = cls._construct_for_load(meta, device=device)
+        idx._load_state(directory, meta)
+        return idx
+
+    @classmethod
+    def _construct_for_load(cls, meta: dict, **ctor_kw):
+        return cls(dim=meta["dim"], metric=meta["metric"],
+                   options=IndexOptions.from_json(meta["options"]),
+                   metric_power=meta.get("metric_power", 3.0), **ctor_kw)
+
+    def _load_state(self, directory: str, meta: dict) -> None:
+        """Restore a snapshot's state and maps into this fresh index."""
         from zebra_tpu_torch.storage.snapshots import open_snapshot_arrays
 
-        with open(os.path.join(directory, "index.json"), "rb") as f:
-            meta = json.loads(f.read())
-        idx = cls(dim=meta["dim"], metric=meta["metric"],
-                  options=IndexOptions.from_json(meta["options"]),
-                  metric_power=meta.get("metric_power", 3.0), device=device)
-        idx._built_n = meta.get("built_n", 0)
-        idx._apply_meta_extra(meta)
+        self._built_n = meta.get("built_n", 0)
+        self._apply_meta_extra(meta)
         if not meta.get("has_state"):
-            return idx
+            return
         with open_snapshot_arrays(directory, meta) as z:
-            idx._restore_arrays(z)
+            self._restore_arrays(z)
             ids_arr = np.array(z["slot_ids"])
-        valid = idx.state.valid.cpu().numpy()
+        valid = self._valid_by_slot()
         # scrub ids saved for tombstoned slots (non-empty id == live)
         has_id = ids_arr.any(axis=1)
         vpad = np.zeros(ids_arr.shape[0], dtype=bool)
         vpad[: len(valid)] = valid[: ids_arr.shape[0]]
         ids_arr[has_id & ~vpad] = 0
-        idx._slot_ids = SlotIdArena.from_array(ids_arr)
-        live = idx._slot_ids.live_slots()
-        idx._id_to_slot.put_many(idx._slot_ids.take_list(live), live)
-        idx._after_restore()
-        return idx
+        self._slot_ids = SlotIdArena.from_array(ids_arr)
+        live = self._slot_ids.live_slots()
+        self._id_to_slot.put_many(self._slot_ids.take_list(live), live)
+        self._after_restore()
+
+    def _valid_by_slot(self) -> np.ndarray:
+        """Liveness of the stored rows indexed by slot (load's id scrub)."""
+        return self.state.valid.cpu().numpy()
 
     def _meta_extra(self) -> dict:
         """Extra snapshot metadata (subclass hook)."""

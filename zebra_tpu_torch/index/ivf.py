@@ -175,9 +175,11 @@ def _jitter(n: int, A: int, device) -> torch.Tensor:
     return torch.fmod(_wrap32(torch.abs(h)), max(min(2, A - 1), 1))
 
 
-def _place_rows(state: IVFState, x32: torch.Tensor, spill: int, metric: str):
+def _place_rows(state: IVFState, x32: torch.Tensor, spill: int, metric: str,
+                jitter: bool = True):
     """Slab slot per row: nearest cell with room, ``spill`` jittered
-    fallbacks, then the shared spare region.
+    fallbacks (``jitter=False``: the fallbacks in nearest order), then the
+    shared spare region.
 
     Returns ``(slots [n] int64 (-1 = dropped), counts [K+1] int32, dropped)``.
     """
@@ -192,7 +194,7 @@ def _place_rows(state: IVFState, x32: torch.Tensor, spill: int, metric: str):
     ar = torch.arange(n, device=dev)
     # attempt 0 is the nearest cell; fallbacks rotate by a per-row jitter so
     # one saturated blob splits over several neighbours
-    r0 = _jitter(n, A, dev)
+    r0 = _jitter(n, A, dev) if jitter else torch.zeros(n, dtype=torch.int64, device=dev)
     oob = torch.full((n,), 2**30, dtype=torch.int64, device=dev)
     for a in range(A):
         if a == 0 or A == 1:
@@ -297,7 +299,8 @@ def quantise_pair_device(x32: torch.Tensor):
     return v8, r8, scale, rscale
 
 
-def insert(state: IVFState, x: torch.Tensor, spill: int = 4, metric: str = "sql2") -> torch.Tensor:
+def insert(state: IVFState, x: torch.Tensor, spill: int = 4, metric: str = "sql2",
+           jitter: bool = True) -> torch.Tensor:
     """Insert a batch of rows (f32, or bf16 from the half-width wire) in
     place (``zebra_tpu/index/ivf.py:266-340``).
 
@@ -310,10 +313,13 @@ def insert(state: IVFState, x: torch.Tensor, spill: int = 4, metric: str = "sql2
     of the STORED value (dequantised, reconstructed or rounded), so re-rank
     distances are exact w.r.t. the slab.
 
+    ``jitter=False`` takes a full cell's fallbacks in nearest order (the
+    sharded index's placement, ``parallel/sharded.py``).
+
     Returns slots ``[n]`` int64 (-1 = dropped: the spare was full too).
     """
     x32 = x.float()
-    slots, counts, dropped = _place_rows(state, x32, spill, metric)
+    slots, counts, dropped = _place_rows(state, x32, spill, metric, jitter)
     plan = _write_plan(slots)
     if state.residual is not None:
         xd, r8, scale, rscale = quantise_pair_device(x32)
@@ -491,6 +497,7 @@ def _query_chunk_rows(state: IVFState, B: int, k: int, eager: bool, kk: int = 0,
 def query(state: IVFState, q: torch.Tensor, k: int, metric: str = "cosine",
           num_probes: int = 8, rerank: str = "eager", probe_sel: str = "auto",
           refine_k: int = 0, refine_scan: bool = False, spare_used: bool | None = None,
+          spare_rows: int | None = None,
           power: float = 3.0):
     """Approximate top-k: score centroids -> top-P blocks -> exact re-rank ->
     spare merge -> refine.
@@ -511,7 +518,9 @@ def query(state: IVFState, q: torch.Tensor, k: int, metric: str = "cosine",
     insert placed them) and their blocks re-ranked on the eager path;
     ``power`` is minkowski's and p_norm's exponent. ``spare_used`` is the
     caller's host mirror of a non-empty spare (None: read ``counts[-1]``, a
-    sync).
+    sync); ``spare_rows``, where given, the mirror of the spare's filled
+    prefix, which is then all the spare merge scans (the same answers: the
+    rest of the region holds no valid row).
 
     Returns ``(dists [B, k], slots [B, k] int64, valid [B, k])``.
     """
@@ -522,7 +531,9 @@ def query(state: IVFState, q: torch.Tensor, k: int, metric: str = "cosine",
     if scan_res:
         refine_k = 0
     kk = refine_k if (state.residual is not None and refine_k > k) else k
-    if spare_used is None:
+    if spare_rows is not None:
+        spare_used = spare_rows > 0
+    elif spare_used is None:
         spare_used = bool(state.counts[-1] > 0)
     mxu = metric in D.MXU_METRICS
     use_kernel = rerank in ("cuda", "cuda2") and mxu and kk <= 128
@@ -546,7 +557,7 @@ def query(state: IVFState, q: torch.Tensor, k: int, metric: str = "cosine",
 
             res = ivf_rerank(state, q32, probes, kk, metric, scan_residual=scan_res)
         if spare_used:
-            res = _merge_spare(state, q32, *res, kk, metric, scan_res, power)
+            res = _merge_spare(state, q32, *res, kk, metric, scan_res, power, spare_rows)
         outs.append(_refine_topk(state, q32, *res, k, metric, power))
     if len(outs) == 1:
         return outs[0]
@@ -621,15 +632,16 @@ def _refine_topk(state: IVFState, q32, dk, ik, vk, k: int, metric: str, power: f
 
 
 def _merge_spare(state: IVFState, q32, dk, ik, vk, k: int, metric: str,
-                 scan_res: bool = False, power: float = 3.0):
+                 scan_res: bool = False, power: float = 3.0, rows: int | None = None):
     """Fold the shared spare region into partial top-k results (a windowed
-    exact scan of ``[spare_start, spare_start + G)``). The residual is scored
+    exact scan of ``[spare_start, spare_start + G)``, or of its first
+    ``rows``, the filled prefix, where the caller knows it). The residual is scored
     only in scan mode; under refine=N the spare rows get the coarse distance
     like every probed row (against ``state.norms`` either way) and
     :func:`_refine_topk` fixes them up with the rest."""
     from zebra_tpu_torch.ops.scan import exact_scan
 
-    G = state.spare_capacity
+    G = state.spare_capacity if rows is None else min(rows, state.spare_capacity)
     if G == 0:
         return dk, ik, vk
     td, ti, tv = exact_scan(

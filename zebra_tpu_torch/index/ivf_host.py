@@ -80,10 +80,12 @@ def _slot_hbm_bytes(options: IndexOptions, dim: int) -> int:
     return per + 13
 
 
-def resolved_capacity(options: IndexOptions, n: int, k: int, dim: int = 0) -> int:
+def resolved_capacity(options: IndexOptions, n: int, k: int, dim: int = 0,
+                      budget: int = _STAGE_HBM_BUDGET) -> int:
     """Per-cluster block width: 2x the mean load rounded up to 32 rows (16
     for f32/bf16), stepping the multiplier down to 1.25x until the slab fits
-    85% of ``_STAGE_HBM_BUDGET``."""
+    85% of ``budget`` (``_STAGE_HBM_BUDGET``; a sharded index whose shards
+    share a device passes each its share)."""
     unit = 32 if options.dtype == "int8" else 16
     if options.cluster_capacity > 0:
         return options.cluster_capacity
@@ -95,7 +97,7 @@ def resolved_capacity(options: IndexOptions, n: int, k: int, dim: int = 0) -> in
     if dim <= 0:
         return rup(2 * mean)
     spare = resolved_spare(options, n)
-    budget = int(0.85 * _STAGE_HBM_BUDGET)
+    budget = int(0.85 * budget)
     per = _slot_hbm_bytes(options, dim)
     cap = unit
     for mult in (2.0, 1.75, 1.5, 1.375, 1.25):
@@ -110,6 +112,21 @@ def resolved_spare(options: IndexOptions, n: int) -> int:
     if options.spare_capacity > 0:
         return options.spare_capacity
     return next_pow2(max(n // 16, 1024))
+
+
+def stored_rows(st: V.IVFState, slots: np.ndarray) -> torch.Tensor:
+    """Stored values of slab rows (``zebra_tpu/index/ivf_host.py:869-885``):
+    refined int8 reconstructs in f32 (a bf16 copy would round its ~15-bit
+    values back to 8 bits), plain int8 dequantises in bf16, bf16 and f32
+    slabs give their rows."""
+    idx = torch.as_tensor(np.asarray(slots, np.int64), device=st.vectors.device)
+    rows = st.vectors[idx]
+    if st.residual is not None:
+        return (rows.float() * st.scales[idx][:, None]
+                + st.residual[idx].float() * st.rscales[idx][:, None])
+    if st.scales is not None:
+        return rows.to(torch.bfloat16) * st.scales[idx][:, None].to(torch.bfloat16)
+    return rows
 
 
 class IVFIndex(BaseVectorIndex):
@@ -464,19 +481,7 @@ class IVFIndex(BaseVectorIndex):
         )
 
     def _take_rows(self, slots: np.ndarray) -> torch.Tensor:
-        """Stored values of slab rows (``zebra_tpu/index/ivf_host.py:869-885``):
-        refined int8 reconstructs in f32 (a bf16 copy would round its ~15-bit
-        values back to 8 bits), plain int8 dequantises in bf16, bf16 and f32
-        slabs give their rows."""
-        st = self.state
-        idx = torch.as_tensor(np.asarray(slots, np.int64), device=st.vectors.device)
-        rows = st.vectors[idx]
-        if st.residual is not None:
-            return (rows.float() * st.scales[idx][:, None]
-                    + st.residual[idx].float() * st.rscales[idx][:, None])
-        if st.scales is not None:
-            return rows.to(torch.bfloat16) * st.scales[idx][:, None].to(torch.bfloat16)
-        return rows
+        return stored_rows(self.state, slots)
 
     # -- persistence ---------------------------------------------------------------------
 

@@ -18,7 +18,7 @@ import torch
 
 from zebra_tpu_torch.index.base import default_device
 from zebra_tpu_torch.models.base import DIM_VIT_BASE_PATCH16_224, BaseModel, upload
-from zebra_tpu_torch.models.vit import IMAGE_SIZE, tower, weight_status
+from zebra_tpu_torch.models.vit import IMAGE_SIZE, tower, tp_tower, weight_status
 
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], dtype=np.float32)
 IMAGENET_STD = np.array([0.229, 0.224, 0.225], dtype=np.float32)
@@ -43,24 +43,28 @@ def load_image224(data: bytes) -> np.ndarray:
 class VitTowerModel(BaseModel):
     """768-d embeddings of documents that preprocess to 224 x 224 x 3 images,
     through the ViT tower on ``device`` (None: the card), in padded batches of
-    ``batch_size``. Subclasses turn one document into its image
-    (:meth:`pixels`); the tower runs on the batch on the device."""
+    ``batch_size``, or tensor-parallel over ``mesh`` (a ``("data",
+    "model")`` mesh; the batches start on its first device). Subclasses turn
+    one document into its image (:meth:`pixels`); the tower runs on the
+    batch on the device."""
 
     dim = DIM_VIT_BASE_PATCH16_224
 
     def __init__(self, mode: str = "embeddings_mean", batch_size: int = 32, seed: int = 0,
                  device=None, mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "a tensor-parallel tower (mesh=) is not ported to the torch package yet "
-                "(ROADMAP.md queue 1, sharding)")
         self.mode = mode
         self.batch_size = batch_size
         self.seed = seed
+        self.mesh = mesh
+        if mesh is not None:
+            device = mesh.devices.flat[0]
         self.device = torch.device(device or default_device())
 
     def tower(self):
-        """The cached tower module on this model's device."""
+        """The cached tower module on this model's device (with a mesh:
+        its tensor-parallel copy)."""
+        if self.mesh is not None:
+            return tp_tower(self.mode, self.seed, self.mesh)
         return tower(self.mode, self.seed, str(self.device))
 
     def pixels(self, documents: list[bytes]) -> torch.Tensor:

@@ -69,19 +69,20 @@ def self_attention(x: torch.Tensor, query: nn.Linear, key: nn.Linear, value: nn.
     ``MultiHeadDotProductAttention`` computes it: the query scaled by
     1/sqrt(head dim) before its dot, masked scores (``mask`` False) set to
     the f32 minimum, softmax, the heads' outputs through ``out``. Shared by
-    the BERT and ViT towers."""
-    n, length, hidden = x.shape
-    hd = hidden // heads
+    the BERT and ViT towers; the head width is the projections' (a
+    tensor-parallel rank's projections carry ``heads`` of the tower's)."""
+    n, length, _ = x.shape
 
-    def split(t):  # [n, L, hidden] -> [n, heads, L, hd]
-        return t.view(n, length, heads, hd).transpose(1, 2)
+    def split(t):  # [n, L, heads * hd] -> [n, heads, L, hd]
+        return t.view(n, length, heads, -1).transpose(1, 2)
 
-    q = split(query(x)) / math.sqrt(hd)
+    q = split(query(x))
+    q = q / math.sqrt(q.shape[-1])
     scores = q @ split(key(x)).transpose(-1, -2)
     if mask is not None:
         scores = torch.where(mask, scores, torch.finfo(scores.dtype).min)
     h = torch.softmax(scores, -1) @ split(value(x))
-    return out(h.transpose(1, 2).reshape(n, length, hidden))
+    return out(h.transpose(1, 2).reshape(n, length, -1))
 
 
 def normal_(p: torch.Tensor, std: float, g: torch.Generator) -> None:
@@ -121,10 +122,15 @@ class BertLayer(nn.Module):
         self.fc2 = nn.Linear(ffn, hidden)
         self.ln2 = LayerNorm(hidden, eps)
 
+    def attend(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        return self_attention(x, self.query, self.key, self.value, self.out, self.heads, mask)
+
+    def mlp(self, x: torch.Tensor) -> torch.Tensor:
+        return self.fc2(F.gelu(self.fc1(x)))
+
     def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-        x = self.ln1(x + self_attention(x, self.query, self.key, self.value, self.out,
-                                        self.heads, mask))
-        return self.ln2(x + self.fc2(F.gelu(self.fc1(x))))
+        x = self.ln1(x + self.attend(x, mask))
+        return self.ln2(x + self.mlp(x))
 
 
 class BertEncoder(nn.Module):
@@ -142,14 +148,21 @@ class BertEncoder(nn.Module):
         self.ln_embed = LayerNorm(hidden, ln_eps)
         self.layers = nn.ModuleList(BertLayer(hidden, heads, ffn, ln_eps) for _ in range(layers))
 
+    def embed(self, ids: torch.Tensor) -> torch.Tensor:
+        return self.ln_embed(self.tok_embed(ids) + self.pos_embed[: ids.shape[1]]
+                             + self.tt_embed[0])
+
+    @staticmethod
+    def pool(x: torch.Tensor) -> torch.Tensor:
+        cls = x[:, 0]
+        return cls / torch.clamp(torch.linalg.vector_norm(cls, dim=-1, keepdim=True), min=1e-12)
+
     def forward(self, ids: torch.Tensor, attn: torch.Tensor) -> torch.Tensor:
-        length = ids.shape[1]
-        x = self.ln_embed(self.tok_embed(ids) + self.pos_embed[:length] + self.tt_embed[0])
+        x = self.embed(ids)
         mask = attn[:, None, None, :]  # over heads and query positions
         for layer in self.layers:
             x = layer(x, mask)
-        cls = x[:, 0]
-        return cls / torch.clamp(torch.linalg.vector_norm(cls, dim=-1, keepdim=True), min=1e-12)
+        return self.pool(x)
 
     @torch.no_grad()
     def random_init(self, seed: int) -> "BertEncoder":
@@ -347,23 +360,34 @@ def _encoder(seed: int, device: str) -> BertEncoder:
 class BGESmallEn15(BaseModel):
     """384-d text embeddings. Runs on the card unless given ``device``
     (``"cpu"`` for a CPU run); without a card and without ``device`` it
-    raises (``index.base.default_device``)."""
+    raises (``index.base.default_device``). ``mesh``: a ``("data",
+    "model")`` mesh (``parallel.towers.make_tower_mesh``) runs the tower
+    tensor-parallel over it, with the single-device tower's weights; the
+    batches start on its first device."""
 
     dim = DIM_BGESMALL_EN_1_5
     name = "bge-small-en-v1.5"
 
     def __init__(self, batch_size: int = 64, seed: int = 0, device=None, mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "a tensor-parallel tower (mesh=) is not ported to the torch package yet "
-                "(ROADMAP.md queue 1, sharding)")
         self.batch_size = batch_size
         self.seed = seed
+        self.mesh = mesh
+        if mesh is not None:
+            device = mesh.devices.flat[0]
         self.device = torch.device(device or default_device())
+        self._tp = None
 
     def encoder(self) -> BertEncoder:
-        """The cached encoder module on this model's device."""
-        return _encoder(self.seed, str(self.device))
+        """The cached encoder module on this model's device (with a mesh:
+        this model's tensor-parallel copy of it)."""
+        enc = _encoder(self.seed, str(self.device))
+        if self.mesh is None:
+            return enc
+        if self._tp is None:
+            from zebra_tpu_torch.parallel.towers import shard_tower
+
+            self._tp = shard_tower(enc, self.mesh)
+        return self._tp
 
     def tokenize_padded(self, texts: list[str]) -> tuple[np.ndarray, np.ndarray]:
         """``(ids, attention)`` of one chunk padded to ``batch_size`` rows

@@ -73,6 +73,7 @@ class VitBlock(nn.Module):
 
     def __init__(self):
         super().__init__()
+        self.heads = HEADS
         self.ln1 = LayerNorm(HIDDEN, LN_EPS)
         self.query = nn.Linear(HIDDEN, HIDDEN)
         self.key = nn.Linear(HIDDEN, HIDDEN)
@@ -82,10 +83,15 @@ class VitBlock(nn.Module):
         self.fc1 = nn.Linear(HIDDEN, MLP)
         self.fc2 = nn.Linear(MLP, HIDDEN)
 
+    def attend(self, h: torch.Tensor) -> torch.Tensor:
+        return self_attention(h, self.query, self.key, self.value, self.out, self.heads)
+
+    def mlp(self, h: torch.Tensor) -> torch.Tensor:
+        return self.fc2(F.gelu(self.fc1(h)))
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = self.ln1(x)
-        x = x + self_attention(h, self.query, self.key, self.value, self.out, HEADS)
-        return x + self.fc2(F.gelu(self.fc1(self.ln2(x))))
+        x = x + self.attend(self.ln1(x))
+        return x + self.mlp(self.ln2(x))
 
 
 class VitTower(nn.Module):
@@ -109,7 +115,10 @@ class VitTower(nn.Module):
             return x.mean(1)
         for block in self.blocks:
             x = block(x)
-        x = self.ln_final(x)
+        return self.pool(self.ln_final(x))
+
+    def pool(self, x: torch.Tensor) -> torch.Tensor:
+        """The encoder modes' pooling of the final LayerNorm's tokens."""
         return x[:, 0] if self.mode == "encoder_cls" else x.mean(1)
 
     @torch.no_grad()
@@ -271,16 +280,39 @@ def weight_status(mode: str, seed: int = 0, device=None) -> list[str]:
     return []
 
 
+#: tensor-parallel towers by (mode, seed, mesh): the mesh's value is the key
+#: (equal meshes share a tower) and keeps it alive while cached; a new layout
+#: evicts the oldest past :data:`_TP_CACHE_MAX`
+_TP_CACHE: dict = {}
+_TP_CACHE_MAX = 8
+
+
+def tp_tower(mode: str, seed: int, mesh):
+    """The ``mode`` tower tensor-parallel over ``mesh``
+    (``parallel.towers``), made from the single-device tower on the mesh's
+    first device."""
+    key = (mode, seed, mesh)
+    if key not in _TP_CACHE:
+        from zebra_tpu_torch.parallel.towers import shard_tower
+
+        while len(_TP_CACHE) >= _TP_CACHE_MAX:
+            _TP_CACHE.pop(next(iter(_TP_CACHE)))
+        _TP_CACHE[key] = shard_tower(tower(mode, seed, str(mesh.devices.flat[0])), mesh)
+    return _TP_CACHE[key]
+
+
 def embed_pixels(pixels, mode: str = "embeddings_mean", seed: int = 0, device=None,
                  mesh=None) -> np.ndarray:
     """``[n, 224, 224, 3]`` float32 ImageNet-normalised pixels (numpy or a
-    tensor) -> ``[n, 768]`` numpy, on ``device`` (None: the card)."""
+    tensor) -> ``[n, 768]`` numpy, on ``device`` (None: the card), or
+    tensor-parallel over ``mesh`` (a ``("data", "model")`` mesh; any batch
+    size)."""
     if mesh is not None:
-        raise NotImplementedError(
-            "a tensor-parallel tower (mesh=) is not ported to the torch package yet "
-            "(ROADMAP.md queue 1, sharding)")
-    dev = torch.device(device or default_device())
-    enc = tower(mode, seed, str(dev))
+        dev = mesh.devices.flat[0]
+        enc = tp_tower(mode, seed, mesh)
+    else:
+        dev = torch.device(device or default_device())
+        enc = tower(mode, seed, str(dev))
     x = torch.as_tensor(pixels, dtype=torch.float32).to(dev)
     with torch.inference_mode():
         return enc(x).cpu().numpy()

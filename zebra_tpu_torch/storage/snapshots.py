@@ -4,10 +4,11 @@ Port of ``zebra_tpu/storage/snapshots.py``: the same ``.npz`` container (a
 ZIP_STORED archive of ``.npy`` members, readable by plain ``np.load``) written
 in bounded chunks, so both packages read each other's snapshots. Torch tensors
 (CPU or CUDA) are fetched chunk by chunk, so the slab never materialises
-host-side whole; bfloat16 tensors are stored as raw uint16 bit patterns (the
-JAX package's slab contract). A :class:`ChunkedSource` member is produced
-chunk by chunk by a callback (the background log fold's fuzzy capture,
-``Database._fold_chunked_capture``), in the same bytes on disk.
+host-side whole (a :class:`StackedSource` member, a sharded index's per-shard
+tensors, shard after shard); bfloat16 tensors are stored as raw uint16 bit
+patterns (the JAX package's slab contract). A :class:`ChunkedSource` member is
+produced chunk by chunk by a callback (the background log fold's fuzzy
+capture, ``Database._fold_chunked_capture``), in the same bytes on disk.
 """
 
 from __future__ import annotations
@@ -41,6 +42,40 @@ class ChunkedSource:
         self.fetch = fetch
 
 
+class StackedSource:
+    """Snapshot member ``[S, ...]`` made of S same-shaped tensors (a sharded
+    index's per-shard states, each on its own device), written part by part
+    without stacking them on a device. ``m[s:e]`` stacks parts ``s .. e-1``
+    on the first part's device (a copy)."""
+
+    def __init__(self, parts):
+        self.parts = list(parts)
+        self.shape = (len(self.parts), *self.parts[0].shape)
+
+    @property
+    def nbytes(self) -> int:
+        return sum(p.numel() * p.element_size() for p in self.parts)
+
+    def dim(self) -> int:
+        return len(self.shape)
+
+    def clone(self) -> "StackedSource":
+        return StackedSource([p.clone() for p in self.parts])
+
+    def __getitem__(self, sl: slice) -> torch.Tensor:
+        dev = self.parts[0].device
+        return torch.stack([p.to(dev) for p in self.parts[sl]])
+
+
+#: members of a capture that live on a device (copied by a cloned capture)
+DEVICE_MEMBERS = (torch.Tensor, StackedSource)
+
+
+def member_nbytes(m) -> int:
+    """Device bytes of a tensor or :class:`StackedSource` member."""
+    return m.nbytes if isinstance(m, StackedSource) else m.numel() * m.element_size()
+
+
 def _to_np(t) -> np.ndarray:
     """Host encoding of one member or chunk: bf16 -> uint16 bit patterns."""
     if isinstance(t, torch.Tensor):
@@ -71,6 +106,8 @@ def _member_meta(arr):
     """(shape, np dtype of the ENCODED stream) for any input array."""
     if isinstance(arr, ChunkedSource):
         return arr.shape, arr.dtype
+    if isinstance(arr, StackedSource):
+        return arr.shape, _member_meta(arr.parts[0])[1]
     if isinstance(arr, torch.Tensor):
         return tuple(arr.shape), _to_np(arr.reshape(-1)[:0]).dtype
     a = _to_np(arr)
@@ -95,6 +132,10 @@ def _iter_chunks(arr, shape, dtype):
     0-d), each <= CHUNK_BYTES; tensors fetch per chunk."""
     if isinstance(arr, ChunkedSource):
         yield from _iter_source_chunks(arr)
+        return
+    if isinstance(arr, StackedSource):
+        for part in arr.parts:
+            yield from _iter_chunks(part, shape[1:], dtype)
         return
     if len(shape) == 0:
         yield _to_np(arr).reshape(())
