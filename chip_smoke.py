@@ -198,7 +198,23 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    top-10, recall); LSH over 4 shards on the first 131,072 rows (recall,
    kernel 4's launches); BGE-small and ViT ``embeddings_mean``
    tensor-parallel on a (data=2, model=4) grid of this card against the
-   single-device towers.
+   single-device towers;
+17. (run after phase 16, on phase 4's first 262,144 rows) kill and reopen:
+   three writer processes each create ``DatabaseConfig(dim=768)`` on the
+   card and insert the rows in 8 calls of 32,768, logging each
+   acknowledged call's ids to an fsync'd side file; this process SIGKILLs
+   (a) one halfway through its 6th call, (b) one just after an
+   acknowledged remove of 1,000 of its ids, (c) one half a second after
+   its background log fold starts (or after its last call where none
+   starts, which is printed), then reopens each on the card and checks:
+   every acknowledged insert live and its row's exact top-1 (certified
+   from bf16 products, else an f64 scan) its own id within 1e-4, no
+   acknowledged remove live or returned, the call in flight present only
+   as a prefix of whole spans (16,384 rows at this call size), the length,
+   and ``db.query`` of 1,024 acknowledged rows through kernel 1 (each its
+   own id; a miss classified by ``fault_c_report``), kernel 1 on those
+   probes against its plain version; the phase's and each replay's
+   seconds.
 
 Each facade path waits for its background retrain and log fold before it
 times anything and prints the waits (``settle``).
@@ -214,8 +230,9 @@ A line ``pipeline: {...}`` holds each path's insert stage table, stream
 QPS, submit timeline and dedup time (and the text path's stage table,
 rates, forward time and recall). The second-to-last line is the kernels'
 JSON record (every kernel carries its ``forms``; kernel 1 has further
-entries for the text path at D=384, sql2, and for the image path and the
-two audio databases), the last line
+entries for the text path at D=384, sql2, for the image path and the
+two audio databases, and for the databases reopened after the kills), the
+last line
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
 
@@ -224,9 +241,11 @@ from __future__ import annotations
 import json
 import os
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -342,6 +361,26 @@ TP_DOCS = 256
 TP_IMAGES = 64
 TP_GRID = (2, 4)
 TP_ATOL = 1e-4
+#: phase 17: rows each killed writer inserts (phase 4's first rows), in
+#: calls of equal size; the call during which writer (a) is killed, after
+#: this share of its previous call's seconds; the acknowledged ids writer
+#: (b) removes after its 4th call; the seconds writer (c) runs on after it
+#: sees the log fold start; the acknowledged rows each reopened database
+#: queries; the cosine distance a row may stand from its stored value (the
+#: int8 + residual reconstruction: ~1e-6); the bound on a bf16 product of
+#: unit vectors' error that certifies an exact top-1 (bf16 operands round
+#: each factor by 2^-9: at most 2^-8 of the product, f32 sums far less);
+#: the writers' time limit
+KILL_ROWS = 262_144
+KILL_CALLS = 8
+KILL_IN_CALL = 5
+KILL_IN_CALL_SHARE = 0.5
+KILL_REMOVE = 1_000
+KILL_FOLD_DELAY_S = 0.5
+KILL_QUERY = 1_024
+KILL_SELF_TOL = 1e-4
+KILL_BF16_ERR = 2.0 ** -7
+KILL_CHILD_TIMEOUT_S = 150
 #: documents phase 15 removes, and those it inserts again as exact copies
 #: (the 30 s clips: WIDE_*)
 MEDIA_REMOVE = slice(1000, 1256)
@@ -3665,6 +3704,364 @@ def media_path(torch, zt, V, R, IC, tmp):
     return entries, rec
 
 
+#: phase 17's writer, run as its own process: it creates the database at the
+#: library defaults on the card, inserts the rows in equal calls and, after
+#: each call returns, appends the call's ids to ``acked.ids`` and fsyncs it.
+#: Mode "b" removes KILL_REMOVE acknowledged ids after its 4th call (logged
+#: to ``removed.ids``); mode "c" watches for the background log fold. Each
+#: event is a line on stdout; the parent kills the writer (SIGKILL).
+KILL_WRITER = r'''
+import os
+import sys
+import threading
+import time
+
+import numpy as np
+
+repo, path, rows_path, mode, calls, remove_n = sys.argv[1:7]
+sys.path.insert(0, repo)
+import zebra_tpu_torch as zt  # noqa: E402
+
+calls, remove_n = int(calls), int(remove_n)
+rows = np.load(rows_path, mmap_mode="r")
+per = rows.shape[0] // calls
+db = zt.Database.create(path, zt.DatabaseConfig(dim=rows.shape[1]))
+
+
+def say(msg):
+    sys.stdout.write(msg + "\n")
+    sys.stdout.flush()
+
+
+def durable(name, ids):
+    with open(os.path.join(os.path.dirname(path), name), "ab") as f:
+        f.write(b"".join(ids))
+        f.flush()
+        os.fsync(f.fileno())
+
+
+def watch_fold():
+    while True:
+        t = db._fold_thread
+        if t is not None and t.is_alive():
+            say("fold running")
+            return
+        time.sleep(0.0005)
+
+
+say(f"ready: span {db._insert_span_rows(per)} rows")
+if mode == "c":
+    threading.Thread(target=watch_fold, daemon=True).start()
+acked = []
+for c in range(calls):
+    say(f"call {c} start")
+    t0 = time.perf_counter()
+    ids = db.insert_vectors(np.ascontiguousarray(rows[c * per:(c + 1) * per]))
+    durable("acked.ids", ids)
+    acked += ids
+    say(f"call {c} acked {time.perf_counter() - t0:.3f}")
+    if mode == "b" and c == 3:
+        victims = acked[:: len(acked) // remove_n][:remove_n]
+        db.remove(victims)
+        durable("removed.ids", victims)
+        say("removed")
+        time.sleep(600)
+say("fold never started" if mode == "c" and db._fold_thread is None else "calls done")
+time.sleep(600)
+'''
+
+
+def read_ids(path: str) -> list[bytes]:
+    """The whole 16-byte ids of a writer's side file (none if absent)."""
+    if not os.path.exists(path):
+        return []
+    with open(path, "rb") as f:
+        raw = f.read()
+    return [raw[o : o + 16] for o in range(0, len(raw) - len(raw) % 16, 16)]
+
+
+def drive_writer(proc, mode: str) -> dict:
+    """Read writer ``mode``'s event lines and SIGKILL it at its point: (a)
+    KILL_IN_CALL_SHARE of the previous call's seconds into call
+    KILL_IN_CALL, (b) when its remove is acknowledged, (c) KILL_FOLD_DELAY_S
+    after it sees the log fold start (or, when no fold started within the
+    calls, after its last call). Returns its lines, the kill and how it
+    ended."""
+    ev = {"lines": [], "killed": None, "at": 0, "fold": None, "started": -1}
+    last_s = 0.0
+    watchdog = threading.Timer(KILL_CHILD_TIMEOUT_S, proc.kill)
+    watchdog.start()
+    try:
+        # the lines the writer printed before it died are read to the end
+        for line in proc.stdout:
+            line = line.strip()
+            ev["lines"].append(line)
+            words = line.split()
+            if line.startswith("call ") and words[2] == "start":
+                ev["started"] = int(words[1])
+            elif line.startswith("call ") and words[2] == "acked":
+                last_s = float(words[3])
+            if line in ("fold running", "fold never started"):
+                ev["fold"] = line == "fold running"
+            due = ((mode == "a" and line == f"call {KILL_IN_CALL} start")
+                   or (mode == "b" and line == "removed")
+                   or (mode == "c" and line in ("fold running", "fold never started")))
+            if due and ev["killed"] is None:
+                time.sleep(KILL_IN_CALL_SHARE * last_s if mode == "a" else
+                           KILL_FOLD_DELAY_S if line == "fold running" else 0.0)
+                ev["killed"], ev["at"] = line, len(ev["lines"])
+                proc.kill()
+    finally:
+        watchdog.cancel()
+        if ev["killed"] is None:
+            proc.kill()
+        proc.wait(timeout=60)
+    ev["rc"] = proc.returncode
+    return ev
+
+
+def certified_top1(torch, idx, q, chunk: int = 4096):
+    """The exact top-1 (cosine) of each row of ``q [n, D]`` among the live
+    stored rows of ``idx``, with its f64 distance: ``(slots [n], d [n])``.
+    A bf16 product of the unit vectors ranks every live row; the first is
+    the exact top-1 wherever its f64 score beats the runner-up's bf16 score
+    by KILL_BF16_ERR (no row's bf16 score is off by more), and the rows not
+    so certified are scanned again in f64. Also returns how many were."""
+    import numpy as np
+
+    live = torch.from_numpy(idx._slot_ids.live_slots()).to(idx.device)
+    x = idx._take_rows(live.cpu().numpy()).float()
+    xn = x / x.norm(dim=1, keepdim=True).clamp(min=1e-30)
+    xb = xn.to(torch.bfloat16)
+    slots, dist, rescanned = [], [], 0
+    for s in range(0, q.shape[0], chunk):
+        qc = torch.from_numpy(np.ascontiguousarray(q[s : s + chunk])).to(idx.device)
+        qn = qc / qc.norm(dim=1, keepdim=True).clamp(min=1e-30)
+        score = torch.mm(qn.to(torch.bfloat16), xb.T, out_dtype=torch.float32)
+        top = score.topk(min(2, x.shape[0]), dim=1)
+        first = top.indices[:, 0]
+        own = (qn.double() * xn[first].double()).sum(1)
+        runner = top.values[:, 1].double() if x.shape[0] > 1 else torch.full_like(own, -2.0)
+        unsure = torch.nonzero(own <= runner + KILL_BF16_ERR).flatten()
+        del score, top
+        for u in unsure.split(256):  # rare: scan those rows again in f64
+            full = torch.cat([(qn[u].double() @ xn[c : c + chunk * 8].double().T)
+                              for c in range(0, x.shape[0], chunk * 8)], 1)
+            first[u] = full.argmax(1)
+            own[u] = full.max(1).values
+        rescanned += int(unsure.numel())
+        slots.append(live[first])
+        dist.append(1.0 - own)
+    return torch.cat(slots).cpu().numpy(), torch.cat(dist).cpu().numpy(), rescanned
+
+
+def kill_check(torch, V, R, IC, db, tag, rows, ev, writer_dir, span):
+    """Phase 17's checks of one reopened database: every acknowledged
+    insert live and its row's exact top-1 its own id within KILL_SELF_TOL,
+    no acknowledged remove live, the rows of the call in flight present only
+    as a prefix of whole spans (each exact), the length, and a query of
+    KILL_QUERY acknowledged rows through kernel 1 (each its own id, a miss
+    classified by ``fault_c_report``). Returns the record and the launches
+    of that query."""
+    import numpy as np
+
+    idx = db.index
+    per = KILL_ROWS // KILL_CALLS
+    acked = read_ids(os.path.join(writer_dir, "acked.ids"))
+    removed = read_ids(os.path.join(writer_dir, "removed.ids"))
+    gone = set(removed)
+    n = len(acked)
+    # the call in flight: the last one started, its rows past the acknowledged
+    call = ev["started"]
+    flight = slice(n, (call + 1) * per) if call >= 0 and n < (call + 1) * per else slice(n, n)
+    with db._lock.read():
+        slot_of = [idx._id_to_slot.get(i) for i in acked]
+        lost = [r for r, (i, sl) in enumerate(zip(acked, slot_of))
+                if sl is None and i not in gone]
+        returned = [i for i in removed if i in idx]
+        keep = np.array([r for r in range(n) if acked[r] not in gone], np.int64)
+        t0 = time.perf_counter()
+        top, dist, rescanned = certified_top1(torch, idx, rows[keep])
+        want = np.array([slot_of[r] if slot_of[r] is not None else -1 for r in keep])
+        wrong = int((top != want).sum())
+        far = float(dist.max()) if len(dist) else 0.0
+        present = np.zeros(flight.stop - flight.start, bool)
+        if len(present):
+            ftop, fdist, more = certified_top1(torch, idx, rows[flight])
+            rescanned += more
+            own = set(np.asarray([sl for sl in slot_of if sl is not None]).tolist())
+            present = (fdist <= KILL_SELF_TOL) & np.array([s not in own for s in ftop.tolist()])
+        length = len(db)
+        exact_s = time.perf_counter() - t0
+    # the whole call in flight: its acknowledged head, then its present rows
+    head = n - call * per if flight.stop > flight.start else 0
+    whole = np.concatenate([np.ones(head, bool), present])
+    m = int(whole.sum())
+    prefix = bool(whole[:m].all()) and m % span == 0
+    expect = n - len(removed) + int(present.sum())
+    print(f"{tag}reopened: {n} acknowledged rows ({n // per} whole calls), {len(removed)} "
+          f"acknowledged removes, the call in flight {call if flight.stop > flight.start else None}"
+          f": {int(present.sum())} of its {len(present)} unacknowledged rows present, "
+          f"{m // span if prefix else 'not'} whole spans of {span}; {len(lost)} acknowledged "
+          f"rows lost, {wrong} whose exact top-1 is another row ({rescanned} rows scanned "
+          f"again in f64; {exact_s:.2f} s), the farthest own row at cosine {far:.3g}; "
+          f"{len(returned)} removed ids live; {length} live (expected {expect})")
+    check(not lost and not wrong and far <= KILL_SELF_TOL,
+          f"{tag}an acknowledged insert is lost or not exact after the kill")
+    check(not returned, f"{tag}an acknowledged remove came back after the kill")
+    check(prefix and (not len(present) or float(fdist[present].max(initial=0.0)) <= KILL_SELF_TOL),
+          f"{tag}the call in flight is not a prefix of whole spans")
+    check(length == expect, f"{tag}the reopened database holds {length} rows, not {expect}")
+
+    # a query of acknowledged rows through kernel 1, once a retrain the
+    # replay wanted has landed
+    t0 = time.perf_counter()
+    db.wait_for_retrain()
+    wait_s = time.perf_counter() - t0
+    pick = keep[np.linspace(0, len(keep) - 1, KILL_QUERY).astype(np.int64)]
+    qv = np.ascontiguousarray(rows[pick])
+    before = R.LAUNCHES
+    res = db.query(qv, 10)
+    launches = R.LAUNCHES - before
+    own_ids = [acked[r] for r in pick]
+    hits = sum(bool(row) and row[0][0] == i for row, i in zip(res, own_ids))
+    leaked = sum(r[0] in gone for row in res for r in row)
+    print(f"{tag}db.query of {KILL_QUERY} acknowledged rows (after {wait_s:.2f} s waiting for "
+          f"the retrain the replay started; retrains {db._retrain_log}): {hits} return their "
+          f"own id first, {leaked} removed ids returned; kernel 1 launched {launches} times")
+    check(launches > 0, f"{tag}the reopened database's query did not launch kernel 1")
+    check(not leaked, f"{tag}the query returned a removed id")
+    if hits < KILL_QUERY:
+        fault_c_report(torch, V, R, IC, db, qv, res, own_ids, [q.tobytes() for q in qv],
+                       range(KILL_QUERY), tag=tag, detail=5,
+                       accept=("nearer in f64", "a tie with the P-th probe", "spilled",
+                               "dropped by stage 1's rounding"))
+    return {"acked": n, "removed": len(removed), "in_flight_call": call if len(present) else None,
+            "present": int(present.sum()), "spans": m // span, "live": length,
+            "self": hits / KILL_QUERY, "launches": launches}, launches, qv
+
+
+def kill_kernel_entry(torch, V, R, IC, db, qv, launches):
+    """Kernel 1's JSON entry for phase 17: the form ``db.query`` took at
+    B=KILL_QUERY on the reopened database's own probes, against its plain
+    version (every differing rank an f64 tie) and timed beside it."""
+    idx = db.index
+    st, metric, P = idx.state, idx.metric, idx.options.resolved_probes()
+    qt = torch.from_numpy(qv).to(idx.device)
+    probes = V.select_probes(st, qt, P, metric, idx.options.probe_sel)
+    form = "cluster" if IC.takes_cluster_form(qt.shape[0], P, st.dim, st.cluster_capacity,
+                                              st.vectors.dtype, 10) else "query"
+    want = R.ivf_rerank_reference(st, qt, probes, 10, metric, scan_residual=True)
+    got = R.ivf_rerank(st, qt, probes, 10, metric, True)
+    agree, err, swaps, gap = hold(torch, got, want, slab_d64(torch, st, qt, metric, True),
+                                  min_agree=0.0)
+    ms = time_ms(torch, lambda: R.ivf_rerank(st, qt, probes, 10, metric, True), 20)
+    plain = time_ms(torch, lambda: R.ivf_rerank_reference(st, qt, probes, 10, metric,
+                                                          scan_residual=True), 2)
+    (bound, by), blocks, _ = probe_bound(torch, st, probes, qt.shape[0], 10, PEAK_F32, True)
+    print(f"kill: ivf_rerank int8+residual {form} form on the reopened database's probes, "
+          f"B={qt.shape[0]}: slot agreement {agree:.6f}, max abs err {err:.3g}, {swaps} differing "
+          f"ranks, all ties (largest f64 gap {gap:.3g}); {ms:.3f} ms, plain {plain:.3f} ms, bound "
+          f"{bound:.3f} ms ({by}), {blocks} distinct blocks")
+    src = {"query": "zebra_tpu_torch/csrc/ivf_rerank.cu",
+           "cluster": "zebra_tpu_torch/csrc/ivf_rerank_cluster.cu"}[form]
+    return {"name": "ivf_rerank", "path": "kill and reopen (D=768, cosine, P=2, k=10)",
+            "route": "cuda", "source": src, "replaces": "zebra_tpu/ops/pallas_ivf.py:72",
+            "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain,
+            "bound_ms": bound, "bound_by": by, "library_ms": None}
+
+
+def kill_path(torch, zt, V, R, IC, tmp, base):
+    """Phase 17: three writers on the card, each killed (SIGKILL) at its
+    point with the pinned ring, the copy streams and the workers live, then
+    each database reopened here on the card and checked (``kill_check``).
+    Returns the phase's record and kernel 1's entry."""
+    import numpy as np
+
+    from zebra_tpu_torch.index.base import read_meta
+
+    t_phase = time.perf_counter()
+    rows = base[:KILL_ROWS]
+    rows_path = os.path.join(tmp, "rows.npy")
+    np.save(rows_path, rows)
+    writer = os.path.join(tmp, "writer.py")
+    with open(writer, "w") as f:
+        f.write(KILL_WRITER)
+    repo = os.path.dirname(os.path.abspath(__file__))
+    procs, errs = {}, []
+    try:
+        for mode in "abc":
+            os.makedirs(os.path.join(tmp, mode))
+            errs.append(open(os.path.join(tmp, mode, "stderr"), "w"))
+            procs[mode] = subprocess.Popen(
+                [sys.executable, writer, repo, os.path.join(tmp, mode, "db.zebra"), rows_path,
+                 mode, str(KILL_CALLS), str(KILL_REMOVE)],
+                stdout=subprocess.PIPE, stderr=errs[-1], text=True)
+        with ThreadPoolExecutor(3) as pool:
+            evs = dict(zip("abc", pool.map(lambda m: drive_writer(procs[m], m), "abc")))
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=60)
+            p.stdout.close()
+        for f in errs:
+            f.close()
+    writers_s = time.perf_counter() - t_phase
+    span = None
+    for mode, ev in evs.items():
+        print(f"kill ({mode}): exit {ev['rc']}; " + "; ".join(ev["lines"][: ev["at"]])
+              + " -> killed -> " + "; ".join(ev["lines"][ev["at"]:]))
+        if ev["killed"] is None or ev["rc"] != -signal.SIGKILL:
+            with open(os.path.join(tmp, mode, "stderr")) as f:
+                print(f.read()[-4000:], file=sys.stderr)
+        check(ev["killed"] is not None and ev["rc"] == -signal.SIGKILL,
+              f"writer ({mode}) ended other than by the parent's kill")
+        span = int(ev["lines"][0].split()[2])
+    print(f"kill (c): the log fold {'started' if evs['c']['fold'] else 'never started'} "
+          f"within the calls")
+    logs = {m: os.path.getsize(os.path.join(tmp, m, "db.zebra.d", "delta.log")) for m in "abc"}
+    # reopen all three on the card (each replays its log; a retrain the
+    # replay wants builds in the background meanwhile), then check each
+    def reopen(mode):
+        path = os.path.join(tmp, mode, "db.zebra")
+        t0 = time.perf_counter()
+        db = zt.Database.open(path, device="cuda")
+        return db, time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(3) as pool:  # the three replays side by side
+        opened = dict(zip("abc", pool.map(reopen, "abc")))
+    reopen_s = time.perf_counter() - t0
+    dbs = {m: db for m, (db, _) in opened.items()}
+    replay_s = {m: s for m, (_, s) in opened.items()}
+    for mode in "abc":
+        path = os.path.join(tmp, mode, "db.zebra")
+        print(f"kill ({mode}): reopened in {replay_s[mode]:.2f} s (the three side by side in "
+              f"{reopen_s:.2f} s), replaying {logs[mode]} log bytes; a fold's temporary "
+              f"directory left: {os.path.isdir(f'{path}.d/index.fold')}; snapshot holds rows: "
+              f"{read_meta(f'{path}.d/index')['has_state']}")
+    recs, launches, qv = {}, 0, None
+    for mode in "abc":
+        recs[mode], n, qv = kill_check(torch, V, R, IC, dbs[mode], f"kill ({mode}) ", rows,
+                                       evs[mode], os.path.join(tmp, mode), span)
+        launches += n
+    entry = kill_kernel_entry(torch, V, R, IC, dbs["c"], qv, launches)
+    for db in dbs.values():
+        db.wait_for_retrain()
+        db.wait_for_fold()
+    del dbs
+    torch.cuda.empty_cache()
+    phase_s = time.perf_counter() - t_phase
+    print(f"kill: phase {phase_s:.1f} s (writers {writers_s:.1f} s, the reopens side by side "
+          f"{reopen_s:.2f} s: " + ", ".join(f"({m}) {s:.2f} s" for m, s in replay_s.items())
+          + f"); kernel 1 launched {launches} times by the reopened databases' queries")
+    rec = {"phase_s": phase_s, "writers_s": writers_s, "reopen_s": reopen_s,
+           "replay_s": replay_s,
+           "fold_started": evs["c"]["fold"], "launches": launches, **recs}
+    return rec, entry
+
+
 def kernels_record(forms, path_forms, ivf_total, lsh_run, lsh_rec, wave_forms, path_recs,
                    wave_by_form, wave_launches, aug_launches, aug_by_form, aug_forms):
     """The kernels' JSON record: one entry per TPU kernel, each with its
@@ -3929,6 +4326,14 @@ def main() -> int:
             torch, zt, V, R, IC, LR, tmp, base, queries)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+    lap(17)
+    # phase 17: writers killed on the card, their databases reopened here
+    tmp = tempfile.mkdtemp(prefix="zebra_smoke_kill_")
+    try:
+        pipe_recs["kill"], kill_entry = kill_path(torch, zt, V, R, IC, tmp, base)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     del data, base, queries
 
     lap(12)
@@ -3960,7 +4365,8 @@ def main() -> int:
           f"{pipe_recs['media']['image']['launches']} (image documents), "
           f"{media_entries[1]['launches']} {pipe_recs['media']['audio']['launches']} (audio "
           f"documents, 2 s clips) and {media_entries[2]['launches']} "
-          f"{pipe_recs['media']['audio_wide']['launches']} (audio documents, 30 s clips) over "
+          f"{pipe_recs['media']['audio_wide']['launches']} (audio documents, 30 s clips) and "
+          f"{kill_entry['launches']} (the databases reopened after the kills) over "
           f"their paths; the whole run took "
           f"{time.perf_counter() - t_start:.0f} s after the card check")
 
@@ -3974,6 +4380,7 @@ def main() -> int:
         aug_by_form, aug_forms)
     record["kernels"].append(text_entry)
     record["kernels"].extend(media_entries)
+    record["kernels"].append(kill_entry)
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -216,3 +216,26 @@ def test_build_lands_in_the_build_directory():
     assert not [f for f in os.listdir(native_dir) if f.endswith(".so")]
     built = [f for f in os.listdir(TN.BUILD_DIR) if f.startswith("libzebra_store-")]
     assert built and all(f.endswith(".so") for f in built)
+
+
+def test_packed_store_compact_matches_jax(tmp_path):
+    """``PackedDocumentStore.compact``: after the same saves, removes and a
+    compact, both packages read the same survivors, and each log shrinks by
+    the same bytes to the same file."""
+    keys, docs = _docs(5)
+    stores = {}
+    for name, mod in (("jax", JB), ("port", TB)):
+        s = mod.PackedDocumentStore(str(tmp_path / name))
+        s.save_many(keys, docs)
+        s.remove_many(keys[::3])
+        before = os.path.getsize(os.path.join(s.directory, "blobs.log"))
+        s.compact()
+        after = os.path.getsize(os.path.join(s.directory, "blobs.log"))
+        stores[name] = (s, before - after, _log(s.directory))
+    assert stores["port"][1] == stores["jax"][1] > 0
+    assert stores["port"][2] == stores["jax"][2]
+    live = {k: d for i, (k, d) in enumerate(zip(keys, docs)) if i % 3}
+    for s, _, _ in stores.values():
+        assert s.read_many(keys) == live
+    TB.PackedDocumentStore(str(tmp_path / "empty")).compact()  # no log yet: a no-op
+    assert not os.path.exists(tmp_path / "empty")

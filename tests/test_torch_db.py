@@ -249,20 +249,34 @@ def test_wal_replays_on_open_in_both_packages(tmp_path, options):
 
 
 def test_import_leaves_jax_out():
-    """Every module of the port imports without JAX and without the JAX
-    package (whose ``__init__`` imports JAX)."""
-    mods = ["zebra_tpu_torch", "zebra_tpu_torch.models.text", "zebra_tpu_torch.models.fetch",
-            "zebra_tpu_torch.models.hfload", "zebra_tpu_torch.models.wordpiece",
-            "zebra_tpu_torch.cli", "zebra_tpu_torch.defaults", "zebra_tpu_torch.storage.blobs",
-            "zebra_tpu_torch.native", "zebra_tpu_torch.native.quant"]
-    code = ("import importlib, sys\n"
-            f"for m in {mods!r}:\n    importlib.import_module(m)\n"
+    """Every module of the port (``pkgutil.walk_packages`` over the package)
+    imports without JAX and without the JAX package (whose ``__init__``
+    imports JAX)."""
+    code = ("import importlib, pkgutil, sys\n"
+            "import zebra_tpu_torch as P\n"
+            "mods = [m.name for m in pkgutil.walk_packages(P.__path__, 'zebra_tpu_torch.')]\n"
+            "assert len(mods) > 40, mods\n"
+            "for m in mods:\n    importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'zebra_tpu.'))"
             " or m == 'zebra_tpu']\n"
             "sys.exit(f'imported {bad}' if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+def test_quickstart_example_runs_on_the_cpu():
+    """``examples/quickstart_torch.py --device cpu``, the port's twin of
+    ``examples/quickstart.py``, runs to its end in a subprocess."""
+    proc = subprocess.run([sys.executable, os.path.join("examples", "quickstart_torch.py"),
+                           "--device", "cpu"], cwd=REPO, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    lines = proc.stdout.splitlines()
+    assert lines[0].startswith("nearest docs: [b'document 42 about topic ")
+    assert lines[1].startswith("self-match: True dist: 0.0")
+    assert lines[2].startswith("reopened: 500 records")
+    assert lines[3] == "after remove+dedup: 490"
 
 
 def test_balanced_tier_on_the_cpu(tmp_path):

@@ -265,8 +265,7 @@ def test_defaults_are_the_jax_packages():
     for name in ("text_config", "image_config", "audio_config"):
         assert getattr(TD, name)().to_json() == getattr(ZD, name)().to_json()
     assert T.text_db is TD.text_db and T.defaults is TD
-    assert {"DefaultTextDatabase", "DefaultImageDatabase", "DefaultAudioDatabase", "text_db",
-            "image_db", "audio_db", "defaults"} <= set(T.__all__)
+    assert T.__all__ == Z.__all__
 
 
 def test_default_databases_pass_their_device(tmp_path):

@@ -371,3 +371,32 @@ def test_cli_image_and_audio_verbs(tmp_path, monkeypatch, capsys):
     monkeypatch.setenv("PATH", str(tmp_path / "empty"))
     assert main(["--database-path", "a.zebra", *cpu, "audio", "query", "0.wav", "--play"]) == 0
     assert "playback unavailable: no system audio player" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("signal", ["tone", "noise"])
+def test_audio_to_image_tensor224_matches_jax(signal):
+    """The reference's one-clip preprocessing, composed from the port's
+    decode, pad, spectrogram and normalisation: ``[224, 224, 3]`` on the
+    host within 1e-5 of the JAX package's."""
+    rng = np.random.default_rng(8)
+    x = _tone(523.0, 1.5) if signal == "tone" else rng.standard_normal(24000) * 0.2
+    data = _wav(x, 16000, 2)
+    want = JA.audio_to_image_tensor224(data)
+    got = TA.audio_to_image_tensor224(data, device="cpu")
+    assert got.shape == want.shape == (224, 224, 3) and got.dtype == np.float32
+    np.testing.assert_allclose(got, want, atol=SPEC_ATOL, rtol=0)
+
+
+def test_encode_test_tone_as_the_jax_package():
+    """``native.av.encode_test_tone``: None where the shim or the encoder is
+    missing, else bytes that both packages decode alike."""
+    from zebra_tpu.native import av as JAV
+
+    got = TAV.encode_test_tone("flac", "flac", rate=16000, n=8000)
+    want = JAV.encode_test_tone("flac", "flac", rate=16000, n=8000)
+    assert (got is None) == (want is None)
+    assert TAV.encode_test_tone("no-such-codec", "wav") is None
+    if got is not None:
+        a, b = TAV.decode_any(got), JAV.decode_any(want)
+        assert a[1] == b[1] == 16000
+        np.testing.assert_array_equal(a[0], b[0])

@@ -23,7 +23,8 @@ from zebra_tpu_torch.models import image as TI
 from zebra_tpu_torch.models import text as TT
 from zebra_tpu_torch.models import vit as TV
 from zebra_tpu_torch.parallel.towers import (MODEL_AXIS, TensorParallelTower, leaf_split,
-                                             make_tower_mesh, shard_tower, tower_param_splits)
+                                             make_tower_mesh, shard_tower, tower_param_shardings,
+                                             tower_param_splits)
 
 CPU = torch.device("cpu")
 ATOL = 2e-5
@@ -159,3 +160,13 @@ def test_layouts_that_do_not_split_are_refused():
         shard_tower(TT.BertEncoder(layers=1), make_tower_mesh(5, 1, [CPU] * 5))
     with pytest.raises(TypeError, match="no tensor-parallel layout"):
         TensorParallelTower(nn.Linear(4, 4), make_tower_mesh(1, 1, [CPU]))
+
+
+def test_tower_param_shardings_name_each_split(mesh):
+    """``tower_param_shardings``: each parameter's split axis over the mesh's
+    model ranks, the layout ``shard_tower`` gives it; a mesh the split axes
+    do not divide over is refused."""
+    enc = TT.BertEncoder(layers=1)
+    assert tower_param_shardings(enc, mesh) == tower_param_splits(enc)
+    with pytest.raises(ValueError, match="does not split over 5"):
+        tower_param_shardings(enc, make_tower_mesh(5, 1, [CPU] * 5))

@@ -17,16 +17,36 @@ from zebra_tpu_torch.defaults import (
     image_db,
     text_db,
 )
+from zebra_tpu_torch.index import load_index, make_index
+from zebra_tpu_torch.index.ivf_host import IVFIndex
+from zebra_tpu_torch.index.lsh import LSHIndex
+
+__version__ = "0.1.0"
+
+
+def __getattr__(name):
+    # lazy, as in the JAX package: the sharded index is loaded on first use
+    if name == "ShardedLSHIndex":
+        from zebra_tpu_torch.parallel.sharded import ShardedLSHIndex
+
+        return ShardedLSHIndex
+    raise AttributeError(name)
+
 
 __all__ = [
-    "Database",
-    "DatabaseConfig",
     "IndexOptions",
-    "defaults",
+    "DatabaseConfig",
+    "Database",
+    "LSHIndex",
+    "IVFIndex",
+    "make_index",
+    "load_index",
+    "ShardedLSHIndex",
     "DefaultTextDatabase",
     "DefaultImageDatabase",
     "DefaultAudioDatabase",
     "text_db",
     "image_db",
     "audio_db",
+    "__version__",
 ]

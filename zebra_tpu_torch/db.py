@@ -514,6 +514,11 @@ class Database:
             return
         self._fold_thread = self._start_worker(self._fold_worker, "zebra-fold")
 
+    def wait_for_warm(self, timeout: float | None = None) -> None:
+        """Returns at once: the JAX facade waits here for its background
+        compile of the served query shapes, and the port compiles no query
+        program ahead (``BaseVectorIndex.warm_serving_shapes``)."""
+
     def wait_for_fold(self, timeout: float | None = _WORKER_WAIT_S) -> None:
         """Block until a fold in flight finishes (call with no lock held)."""
         t = self._fold_thread

@@ -41,6 +41,7 @@ import torch
 from zebra_tpu_torch.config import IndexOptions
 from zebra_tpu_torch.ops import distances as D
 from zebra_tpu_torch.profiling import timed
+from zebra_tpu_torch.storage import snapshots as _snap
 from zebra_tpu_torch.storage.snapshots import DEVICE_MEMBERS, member_nbytes
 from zebra_tpu_torch.utils import fsync_write, next_pow2, uuid7_batch
 
@@ -54,6 +55,15 @@ _ZERO_ID = b"\x00" * 16
 _RING_SLOTS = 3
 #: byte alignment of the parts packed into one staging buffer
 _ALIGN = 16
+#: what saving an orbax snapshot raises: orbax checkpoints are a JAX-library
+#: format (``zebra_tpu/storage/orbax_snap.py``) the port neither reads nor
+#: writes; the JAX package raises an ImportError that names the npz format
+#: where orbax is missing
+ORBAX_UNAVAILABLE = (
+    "snapshot_format='orbax' requires the optional dependency orbax-checkpoint, "
+    "which the torch port does not use (a JAX-library format); use the default "
+    "snapshot_format='npz' otherwise"
+)
 #: device bytes ``snapshot_capture(clone=True)`` may copy; past it the
 #: capture is refused (``cloned: False``) and the fold streams chunks
 _CLONE_HBM_BUDGET = 4 << 30
@@ -176,6 +186,13 @@ class SlotIdArena:
         if slot < self._hi:
             self._arr[slot] = 0
 
+    def get(self, slot: int) -> bytes:
+        """Id at ``slot`` (b"" for an empty, dead or out-of-range slot)."""
+        if slot < 0 or slot >= self._hi:
+            return b""
+        raw = self._arr[slot].tobytes()
+        return b"" if raw == _ZERO_ID else raw
+
     def take_list(self, slots: np.ndarray) -> list[bytes]:
         flat = self._arr[np.asarray(slots, dtype=np.int64)].tobytes()
         return [flat[o : o + 16] for o in range(0, len(flat), 16)]
@@ -239,6 +256,20 @@ class IdSlotMap:
             return default
         self._native.delete(bytes(key))
         return v
+
+
+def slab_to_np(vectors: torch.Tensor) -> np.ndarray:
+    """Snapshot encoding of a slab: bf16 as raw uint16 bit patterns, any
+    other type as f32."""
+    if vectors.dtype == torch.bfloat16:
+        return _snap._to_np(vectors)
+    return vectors.detach().float().cpu().numpy()
+
+
+def slab_from_np(arr: np.ndarray, dtype, device="cpu") -> torch.Tensor:
+    """Inverse of :func:`slab_to_np` on ``device`` (f32 snapshots of a bf16
+    slab too)."""
+    return _snap.slab_from_np(arr, device, dtype)
 
 
 class BaseVectorIndex:
@@ -307,6 +338,21 @@ class BaseVectorIndex:
 
     def no_vectors(self) -> bool:
         return len(self._id_to_slot) == 0
+
+    def no_tables(self) -> bool:
+        return self.state is None
+
+    def is_empty(self) -> bool:
+        return self.no_vectors() or self.no_tables()
+
+    def ids(self) -> list[bytes]:
+        """All live ids, in slot order."""
+        return self._slot_ids.take_list(self._slot_ids.live_slots())
+
+    def stats(self) -> dict:
+        if self.state is None:
+            return {"vectors": 0, "built": False}
+        return {"vectors": len(self._id_to_slot), "built": True}
 
     # -- insert ---------------------------------------------------------------
 
@@ -883,6 +929,7 @@ class BaseVectorIndex:
         clone past ``_CLONE_HBM_BUDGET`` bytes is refused: ``cloned`` is
         then False and the tensors are the live ones."""
         options = dataclasses.replace(self.options, rerank=self._given_rerank)
+        fmt = self.options.snapshot_format
         meta = {
             "dim": self.dim,
             "metric": self.metric,
@@ -891,7 +938,7 @@ class BaseVectorIndex:
             "built_n": self._built_n,
             "has_state": self.state is not None,
             "backend": type(self).__name__,
-            "snapshot_format": "npz",
+            "snapshot_format": fmt,
             **self._meta_extra(),
         }
         arrays, cloned = None, True
@@ -903,7 +950,7 @@ class BaseVectorIndex:
                     arrays.update({k: v.clone() for k, v in dev.items()})
                 else:
                     cloned = False
-        return {"meta": meta, "arrays": arrays, "cloned": cloned}
+        return {"meta": meta, "fmt": fmt, "arrays": arrays, "cloned": cloned}
 
     def write_capture(self, directory: str, cap: dict) -> None:
         """Write a :meth:`snapshot_capture` to ``directory`` (fsync'd; the
@@ -913,8 +960,13 @@ class BaseVectorIndex:
 
         os.makedirs(directory, exist_ok=True)
         fsync_write(os.path.join(directory, "index.json"), json.dumps(cap["meta"]).encode())
-        if cap["arrays"] is not None:
-            write_npz_streamed(os.path.join(directory, "arrays.npz"), cap["arrays"])
+        if cap["arrays"] is None:
+            return
+        if cap["fmt"] == "orbax":
+            # the JAX package raises here where orbax is not installed
+            # (``zebra_tpu/storage/orbax_snap.py:42-49``); the port never has it
+            raise ImportError(ORBAX_UNAVAILABLE)
+        write_npz_streamed(os.path.join(directory, "arrays.npz"), cap["arrays"])
 
     @classmethod
     def load(cls, directory: str, device=None):

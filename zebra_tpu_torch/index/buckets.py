@@ -87,6 +87,10 @@ class LSHState:
         return self.vectors.device
 
 
+#: the JAX package's name of the state
+IndexState = LSHState
+
+
 def empty_state(planes: torch.Tensor, consts: torch.Tensor, bucket_capacity: int,
                 slab_capacity: int, dtype=torch.float32) -> LSHState:
     """Fresh state on the planes' device."""

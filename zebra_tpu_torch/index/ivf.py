@@ -668,3 +668,9 @@ def brute_force(state: IVFState, q: torch.Tensor, k: int, metric: str = "cosine"
         norms=state.norms if state.residual is not None else None,
         residual=state.residual, rscales=state.rscales,
     )
+
+
+def num_valid(state: IVFState) -> torch.Tensor:
+    """Live slots of the state: a 0-d int32 tensor on its device (no host
+    read), as the JAX package returns a 0-d array."""
+    return state.valid.sum(dtype=torch.int32)

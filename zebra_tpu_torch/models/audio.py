@@ -210,6 +210,17 @@ def image_from_spectrogram(img: torch.Tensor) -> torch.Tensor:
     return (img[..., None].expand(*img.shape, 3) - mean) / std
 
 
+def audio_to_image_tensor224(data: bytes, device=None) -> np.ndarray:
+    """Bytes -> ``[224, 224, 3]`` ImageNet-normalised spectrogram image on
+    the host (the reference's ``audio_to_image_tensor224``); the spectrogram
+    runs on ``device`` (None: the card), as the tower's batches do."""
+    from zebra_tpu_torch.index.base import default_device
+
+    host = pad_samples(audio_to_data(data)[0])[None]
+    img = image_from_spectrogram(spectrogram(upload(host, torch.device(device or default_device()))))
+    return img[0].cpu().numpy()
+
+
 class VitAudioModel(VitTowerModel):
     """768-d audio embeddings: the spectrogram image through the ViT tower
     (the reference's audio ``VitBasePatch16_224``)."""

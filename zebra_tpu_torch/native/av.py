@@ -49,6 +49,11 @@ def get_lib():
             ctypes.POINTER(ctypes.c_longlong),
             ctypes.POINTER(ctypes.c_int),
         ]
+        lib.za_encode_test.restype = ctypes.c_int
+        lib.za_encode_test.argtypes = [
+            ctypes.c_char_p, ctypes.c_char_p, ctypes.c_char_p,
+            ctypes.c_int, ctypes.c_int, ctypes.c_double,
+        ]
         lib.za_free.restype = None
         lib.za_free.argtypes = [ctypes.POINTER(ctypes.c_float)]
         _lib = lib
@@ -86,3 +91,23 @@ def decode_any(data: bytes) -> tuple[np.ndarray, int] | None:
     finally:
         if tmp is not None:
             os.unlink(tmp)
+
+
+def encode_test_tone(codec: str, container: str, rate: int = 44100,
+                     n: int = 44100, freq: float = 440.0) -> bytes | None:
+    """For tests: a sine of ``n`` samples encoded with the named ffmpeg codec
+    and container, as file bytes, or None where the shim or that encoder is
+    unavailable. Exercises decode paths with no sample files on disk."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    with tempfile.NamedTemporaryFile(delete=False) as f:
+        tmp = f.name
+    try:
+        rc = lib.za_encode_test(tmp.encode(), codec.encode(), container.encode(), rate, n, freq)
+        if rc != 0:
+            return None
+        with open(tmp, "rb") as f:
+            return f.read()
+    finally:
+        os.unlink(tmp)

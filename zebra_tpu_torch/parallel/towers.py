@@ -73,6 +73,19 @@ def tower_param_splits(module: nn.Module) -> dict[str, int | None]:
     return {name: leaf_split(name) for name in module.state_dict()}
 
 
+def tower_param_shardings(module: nn.Module, mesh: Mesh) -> dict[str, int | None]:
+    """Every parameter of ``module`` and the axis :func:`shard_tower` splits
+    it on over ``mesh``'s ``"model"`` ranks (None: replicated). Raises when a
+    split axis does not divide over the ranks."""
+    m = mesh.shape[MODEL_AXIS]
+    splits = tower_param_splits(module)
+    for name, t in module.state_dict().items():
+        axis = splits[name]
+        if axis is not None and t.shape[axis] % m:
+            raise ValueError(f"{name} {tuple(t.shape)} does not split over {m} model ranks")
+    return splits
+
+
 def _reduce(parts, device) -> torch.Tensor:
     """Sum of the model ranks' partials on ``device``, in rank order."""
     total = parts[0].to(device)

@@ -154,6 +154,13 @@ class PackedDocumentStore:
             store.delete(doc_id)
         store.flush()
 
+    def compact(self) -> None:
+        """Rewrite the log with its live records only, reclaiming the bytes
+        of removed documents."""
+        store = self._log()
+        if store is not None:
+            store.compact()
+
     def close(self) -> None:
         """Release the log's file handle, keeping its data (it reopens on
         the next access)."""

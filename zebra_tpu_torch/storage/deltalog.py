@@ -53,11 +53,12 @@ INSERT_Q8 = 4
 
 
 def _f32_to_bf16_bits(x: np.ndarray) -> np.ndarray:
-    """f32 -> bf16 bit patterns, round to nearest even (NaN stays NaN)."""
+    """f32 -> bf16 bit patterns, round to nearest even; every NaN becomes the
+    quiet NaN of its sign (0x7FC0 / 0xFFC0), as ``ml_dtypes`` converts."""
     u = np.ascontiguousarray(x, dtype=np.float32).view(np.uint32)
     rounded = (u + (np.uint32(0x7FFF) + ((u >> 16) & 1))) >> 16
-    nan = np.isnan(x)
-    return np.where(nan, (u >> 16) | 0x40, rounded).astype(np.uint16)
+    nan = np.isnan(u.view(np.float32))
+    return np.where(nan, ((u >> 16) & 0x8000) | 0x7FC0, rounded).astype(np.uint16)
 
 
 class DeltaLog:

@@ -198,6 +198,10 @@ class SnapshotReader:
         self._path = path
         self._npz = npz
 
+    @property
+    def files(self):
+        return self._npz.files
+
     def __contains__(self, name: str) -> bool:
         return name in self._npz
 
